@@ -1,0 +1,2 @@
+from .aspp_head import ASPPHead  # noqa: F401
+from .fcn_head import FCNHead  # noqa: F401

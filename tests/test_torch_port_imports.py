@@ -1,0 +1,33 @@
+"""Every module of the PyTorch port imports without JAX.
+
+Runs in a fresh interpreter (the test process has jax loaded already): walk
+the package, import each module, then check that neither JAX nor the JAX
+package, nor a library missing on the GPU machine, was pulled in.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = """
+import importlib, pkgutil, sys
+import image_segmentation_lab_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) > 20, names
+forbidden = ("jax", "flax", "optax", "image_segmentation_lab_tpu", "yaml",
+             "cv2", "PIL", "matplotlib", "triton")
+loaded = sorted(m for m in forbidden if m in sys.modules)
+assert not loaded, loaded
+print("ok", len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
