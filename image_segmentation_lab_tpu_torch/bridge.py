@@ -6,11 +6,14 @@ hold: every variable collection (``params``, ``frozen_params``,
 ``batch_stats``) flattened without the collection name.  Port submodules
 are named after the JAX parameter-tree paths, so a port key maps to its JAX
 key by one rule: a list index ``name.<i>`` (``nn.ModuleList``) is the flax
-list attribute ``name_<i>``.  Values map as follows:
+list attribute ``name_<i>``.  Values map by the type of the port module that
+holds them, never by their shape (a square linear weight looks the same
+either way round):
 
-* 4-D conv kernels: HWIO → OIHW;
-* batch-norm ``weight``/``bias``/``running_mean``/``running_var`` and conv
-  biases: unchanged.
+* ``nn.Conv2d`` weights: HWIO → OIHW;
+* ``nn.Linear`` weights: ``(in, out)`` → ``(out, in)``;
+* everything else (biases, norm affines and statistics, ViT's
+  ``cls_token`` and ``pos_embed``): unchanged.
 
 The load is strict: every JAX leaf must be used and every port parameter
 and buffer filled (``num_batches_tracked`` has no JAX counterpart and is
@@ -20,7 +23,7 @@ left alone).
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -34,11 +37,24 @@ def jax_name(torch_name: str) -> str:
     return _LIST_INDEX.sub(r"_\1", torch_name)
 
 
+def _layout_maps(model: nn.Module) -> Dict[str, Callable]:
+    """Port weight name -> JAX-to-port layout map, by module type."""
+    maps = {}
+    for name, module in model.named_modules():
+        prefix = f"{name}." if name else ""
+        if isinstance(module, nn.Conv2d):
+            maps[prefix + "weight"] = lambda a: a.transpose(3, 2, 0, 1)
+        elif isinstance(module, nn.Linear):
+            maps[prefix + "weight"] = np.transpose
+    return maps
+
+
 def load_jax_state_dict(model: nn.Module,
                         state_dict: Dict[str, np.ndarray]) -> None:
     """Copy a JAX-package state dict into ``model`` in place (strict)."""
     targets = {k: v for k, v in model.state_dict().items()
                if not k.endswith("num_batches_tracked")}
+    layout = _layout_maps(model)
     remaining = dict(state_dict)
     missing, mismatched = [], []
     with torch.no_grad():
@@ -48,8 +64,8 @@ def load_jax_state_dict(model: nn.Module,
                 missing.append(f"{name} (JAX {key})")
                 continue
             arr = np.asarray(remaining.pop(key))
-            if arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            if name in layout:
+                arr = layout[name](arr)
             if tuple(arr.shape) != tuple(tensor.shape):
                 mismatched.append(f"{name}: checkpoint {arr.shape} vs model "
                                   f"{tuple(tensor.shape)}")

@@ -1,9 +1,14 @@
-"""Convolution layers (counterpart of ``models/basic/convolution.py``).
+"""Convolution and dense layers (counterpart of
+``models/basic/convolution.py``).
 
 ``Conv2d`` is ``nn.Conv2d`` (NCHW, weights OIHW).  The JAX package rewrites
 large-dilation 3x3 convs as a centre matmul plus boundary slabs
 (``ops/dilated_conv.py``); that rewrite computes exactly what a dilated conv
 computes, so here the dilated conv is cuDNN's.
+
+``Linear`` is ``nn.Linear``, whose weight is ``(out, in)``: the transpose of
+the JAX ``Linear``'s ``(in, out)`` kernel, which ``bridge.py`` transposes.
+Like the JAX one it is in no registry.
 """
 
 from torch import nn
@@ -11,3 +16,4 @@ from torch import nn
 from ...core.registry_hub import CONVOLUTION
 
 Conv2d = CONVOLUTION.register("Conv2d", aliases=("Conv",))(nn.Conv2d)
+Linear = nn.Linear

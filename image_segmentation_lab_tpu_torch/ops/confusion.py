@@ -13,27 +13,18 @@ the wrapper computes the plain PyTorch version; for a CUDA tensor it
 launches the kernel or raises.  There is no regime gate: the JAX package's
 gate was measured on a TPU.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use, from the
-source in this package, into ``_build/`` beside it (keyed by a hash of the
-source), and loaded with ``ctypes``.
+The kernel is compiled at first use by ``ops/nvcc_build.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Tuple
 
 import torch
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "confusion.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+from .nvcc_build import load_library
+
 # per-block shared-memory bins [3][num_classes] stay within the 48 KB that
 # needs no opt-in
 MAX_CLASSES = 4096
@@ -43,37 +34,12 @@ launches = {"logits": 0, "labels": 0}
 _lib = None
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        candidate = Path(cuda_home) / "bin" / "nvcc"
-        if not candidate.is_file():
-            raise RuntimeError(
-                "nvcc not found (PATH or $CUDA_HOME/bin): the confusion "
-                "kernel cannot be built")
-        nvcc = str(candidate)
-    return nvcc
-
-
 def build_library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib
     if _lib is not None:
         return _lib
-    source = _SOURCE.read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    target = _BUILD_DIR / f"libconfusion_{digest[:16]}.so"
-    if not target.is_file():
-        nvcc = _nvcc()
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a per-process name, then rename: concurrent builders
-        # never load a half-written library
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                       check=True)
-        os.replace(tmp, target)
-    lib = ctypes.CDLL(str(target))
+    lib = load_library("confusion.cu")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for name in ("confusion_from_logits_f32", "confusion_from_logits_bf16"):
         fn = getattr(lib, name)

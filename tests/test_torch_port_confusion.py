@@ -19,7 +19,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from image_segmentation_lab_tpu.ops.pallas.confusion import (  # noqa: E402
     _hist_pallas, confusion_histograms as jax_histograms)
-from image_segmentation_lab_tpu_torch.ops import confusion  # noqa: E402
+from image_segmentation_lab_tpu_torch.ops import (  # noqa: E402
+    confusion, nvcc_build)
 
 # jitted: one compile per case instead of one per eager op and shape
 jax_histograms = jax.jit(jax_histograms, static_argnums=(2, 3, 4))
@@ -113,10 +114,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 def test_no_fallback_around_the_kernel(monkeypatch, tmp_path):
     """The wrapper module has no try/except that could fall back to the
     plain version, and a missing compiler raises instead of computing."""
-    tree = ast.parse(inspect.getsource(confusion))
-    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    for module in (confusion, nvcc_build):
+        tree = ast.parse(inspect.getsource(module))
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
     monkeypatch.setattr(confusion, "_lib", None)
-    monkeypatch.setattr(confusion.shutil, "which", lambda _: None)
+    monkeypatch.setattr(nvcc_build, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(nvcc_build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         confusion.build_library()

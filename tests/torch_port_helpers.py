@@ -45,17 +45,18 @@ def tiny_flagship_cfg(test_cfg=None, num_classes=2):
 
 
 def randomize_variables(variables, seed):
-    """Replace every leaf with seeded numpy values of its shape: conv
-    kernels N(0, 1/fan_in), norm weights and running variances in
-    [0.5, 1.5], biases and running means in [-0.2, 0.2].  Every weight then
-    matters (no zero-initialised residual norm hides a block)."""
+    """Replace every leaf with seeded numpy values of its shape: conv and
+    linear kernels N(0, 1/fan_in), norm weights and running variances in
+    [0.5, 1.5], biases, running means and other tables (ViT's class token
+    and position table) in [-0.2, 0.2].  Every weight then matters (no
+    zero-initialised residual norm hides a block)."""
     rng = np.random.RandomState(seed)
 
     def leaf(path, x):
         name = str(getattr(path[-1], "key", path[-1]))
         shape = tuple(x.shape)
-        if len(shape) == 4:  # HWIO
-            fan_in = shape[0] * shape[1] * shape[2]
+        if len(shape) in (2, 4):  # linear (in, out), conv HWIO
+            fan_in = int(np.prod(shape[:-1]))
             v = rng.randn(*shape) / np.sqrt(fan_in)
         elif name in ("running_var", "weight"):
             v = rng.uniform(0.5, 1.5, shape)
