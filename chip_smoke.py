@@ -5,8 +5,9 @@ card, ``nvcc`` and ``nvidia-smi``, and imports no JAX.  Phases, each
 printing its own lines; any failure raises and the exit code is not 0:
 
 1. device: the card's name and power limit;
-2. build: compile both kernels from ``csrc/``, one ``nvcc`` each, in
-   parallel;
+2. build: compile the three kernel libraries from ``csrc/`` (confusion,
+   flash-attention forward, flash-attention backward), one ``nvcc`` each,
+   in parallel;
 3. confusion kernel: against its plain PyTorch version (exact equality) at
    the eval batches of both slices, at a Cityscapes-sized batch in float32
    and bfloat16, and at a ragged shape with ignored and out-of-range labels;
@@ -25,7 +26,25 @@ printing its own lines; any failure raises and the exit code is not 0:
    ``inference_model`` (whole) and ``SegEvaluator`` on eight synthetic 640²
    images; exactly 12 flash launches per forward (one per layer), and the
    device time per kernel of one batch from ``torch.profiler``;
-7. cpu agreement: one 320² window of each model, on the CPU and the card.
+7. cpu agreement: one 320² window of each model, on the CPU and the card;
+8. flash-attention backward kernels (dQ, dK/dV): against their plain
+   version at SETR ViT-S/16's training shape (float32 and bfloat16), the
+   MiT-like ``Lq != Lk`` shape, a ragged small shape and Lk = 65 (63 masked
+   keys in the last tile), with q, k, v and dO as the model passes them;
+   beside them the backward of ``F.scaled_dot_product_attention`` as a
+   yardstick (never on the path);
+9. SETR train slice: full-width SETR-PUP ViT-S/16 through ``init_model``,
+   ``create_train_state`` and ``make_train_step`` (SGD and StepLR of the
+   kvasir schedule, drop path 0.1 from a CUDA generator) for 10 steps on
+   one batch of eight synthetic 640² images; exactly 12 launches of each
+   flash kernel per step, finite and falling losses, moved parameters and
+   BN statistics, gradients in the aux head; ms per step, peak memory and
+   the device time per kernel class of one step from ``torch.profiler``;
+10. cpu agreement (SETR train step): the full-size config without drop
+   path, batch 2 at 320², one train step from the same weights on the card
+   (kernels, float32) and on the CPU in float64 (plain versions, attention
+   and LayerNorm without their float32 casts): loss, every gradient and
+   every parameter after the update.
 
 Kernel times: the wrapper's median of 20 calls by CUDA events and the
 kernel's own device time from ``torch.profiler``, with a 96 MB write
@@ -45,9 +64,11 @@ import math
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -56,9 +77,14 @@ import torch.nn.functional as F
 from image_segmentation_lab_tpu_torch.core.dataset.synthetic import \
     make_synthetic_item
 from image_segmentation_lab_tpu_torch.core.evaluation import SegEvaluator
+from image_segmentation_lab_tpu_torch.core.fileio import load_python_config
 from image_segmentation_lab_tpu_torch.core.inference import (inference_model,
                                                              init_model)
+from image_segmentation_lab_tpu_torch.models.backbones import vit
+from image_segmentation_lab_tpu_torch.models.basic import LayerNorm
 from image_segmentation_lab_tpu_torch.ops import confusion, flash_attention
+from image_segmentation_lab_tpu_torch.train_state import (create_train_state,
+                                                          make_train_step)
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs/network/deeplabv3/deeplabv3_r50-d8.py"
@@ -84,8 +110,35 @@ FLASH_SHAPES = [  # (N, h, Lq, Lk, d), dtype
 FLASH_TOL = {torch.float32: (2e-6, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 IGNORE = 255
 RTOL, ATOL = 1e-3, 3e-3  # the slice tolerance of tests/test_torch_port_slice
+FLASH_BWD_SHAPES = [  # (N, h, Lq, Lk, d), dtype
+    ((8, 6, 1601, 1601, 64), torch.float32),   # SETR ViT-S/16 train, 640², b8
+    ((8, 6, 1601, 1601, 64), torch.bfloat16),
+    ((8, 1, 25600, 400, 32), torch.float32),   # MiT-like, Lq != Lk
+    ((3, 1, 130, 130, 64), torch.float32),     # ragged, small
+    ((2, 3, 63, 65, 32), torch.float32),       # 63 masked keys in the last tile
+]
+SCHEDULE = ROOT / "configs/schedule/kvasir_training_schedule.py"
+TRAIN_BATCH, TRAIN_IMAGE_SIZE, TRAIN_STEPS = 8, 640, 10
+AGREE_BATCH, AGREE_IMAGE_SIZE = 2, 320
+# per gradient tensor, against the step in float64 on the CPU: max |card -
+# reference| <= GRAD_RTOL * max |reference| + GRAD_ATOL.  The card's float32
+# gradients measured at most 1.13e-3 of max |g| off float64, with the flash
+# kernels or with plain attention alike (PERF.md, Findings).  The parameters
+# after the update get GRAD_RTOL of the largest update plus one float32
+# rounding step of the largest parameter, which the card stores.
+GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-6
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+
+def flash_bwd_tol(dtype, ref):
+    """(atol, rtol) of a backward kernel's output against the plain
+    version's ``ref``: in float32 tests/test_flash_attention.py's gradient
+    tolerance; in bfloat16 one rounding step of the value (2**-7 of it)
+    plus 1e-3 of the tensor's largest value."""
+    if dtype == torch.float32:
+        return 2e-5, 1e-4
+    return 1e-3 * float(ref.float().abs().max()), 2.0 ** -7
 
 
 def cuda_ms(fn, flush=None, warmup=3, runs=20):
@@ -363,6 +416,12 @@ def check_class_map(pred, shape, what):
         raise AssertionError(f"{what}: bad class map {pred.shape}")
 
 
+def reset_counts():
+    for counts in (flash_attention.launches, confusion.launches):
+        for key in counts:
+            counts[key] = 0
+
+
 def slice_phase(device):
     model = init_model(CONFIG, device=device)
     if model.auxiliary_head is None:
@@ -370,8 +429,7 @@ def slice_phase(device):
     randomize_(model, seed=0)
     x, x_nchw, masks = synthetic_batch(device, BATCH, IMAGE_SIZE)
 
-    for key in confusion.launches:
-        confusion.launches[key] = 0
+    reset_counts()
     latency = {}
     evaluator = new_evaluator()
     with torch.no_grad():
@@ -403,16 +461,24 @@ def slice_phase(device):
 def kernel_class(name):
     """Coarse class of a CUDA kernel name for the time breakdown."""
     low = name.lower()
-    for key, words in (("flash attention", ("flash_fwd_kernel",)),
+    for key, words in (("flash fwd", ("flash_fwd_kernel",)),
+                       ("flash dq", ("flash_bwd_dq_kernel",)),
+                       ("flash dkv", ("flash_bwd_dkv_kernel",)),
                        ("confusion", ("confusion_kernel",)),
-                       # cuDNN's implicit-GEMM and FFT convolutions
-                       ("conv", ("conv", "fprop", "fft", "flip_filter",
-                                 "pointwise_mult_and_sum_complex")),
-                       ("matmul", ("gemm", "cutlass", "xmma")),
-                       ("layer norm", ("layer_norm",)),
                        ("batch norm", ("batch_norm", "bn_")),
+                       # cuDNN's implicit-GEMM and FFT convolutions (the
+                       # latter multiply in complex float, cf32 GEMMs),
+                       # with their data- and weight-gradient kernels
+                       ("conv", ("conv", "fprop", "dgrad", "wgrad", "fft",
+                                 "flip_filter", "cf32",
+                                 "pointwise_mult_and_sum_complex")),
+                       ("matmul", ("gemm", "cutlass", "xmma", "splitk")),
+                       ("layer norm", ("layer_norm",)),
                        ("upsample", ("upsample",)),
-                       ("softmax", ("softmax",))):
+                       ("softmax", ("softmax",)),
+                       ("optimizer", ("multi_tensor_apply", "foreach")),
+                       ("reduction", ("reduce_kernel",)),
+                       ("elementwise", ("elementwise",))):
         if any(w in low for w in words):
             return key
     return "other"
@@ -449,9 +515,7 @@ def setr_slice_phase(device):
         forwards += 1
         return inference_model(model, x)
 
-    for counts in (flash_attention.launches, confusion.launches):
-        for key in counts:
-            counts[key] = 0
+    reset_counts()
     evaluator = new_evaluator()
     with torch.no_grad():
         check_class_map(serve(), shape, "setr whole")
@@ -499,6 +563,242 @@ def cpu_agreement_phase(model, x_nchw, h, w, what):
         argmax_mismatches=int(mism.sum()))), flush=True)
 
 
+def flash_backward_phase(device, l2_flush):
+    """dQ and dK/dV kernels against the plain backward on the same inputs;
+    times of each kernel, the plain backward (dQ, dK and dV together) and
+    SDPA's backward (the three together)."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    rows = []
+    for (n, h, lq, lk, d), dtype in FLASH_BWD_SHAPES:
+        q, k, v = projection_views(gen, device, dtype, n, h, lq, lk, d)
+        do = torch.randn((n, lq, h, d), generator=gen, device=device).to(
+            dtype)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = flash_attention.flash_attention_forward(q, k, v, scale)
+        delta = flash_attention.backward_delta(o, do)
+        args = (q, k, v, do, lse, delta, scale)
+        outs = (flash_attention.flash_attention_backward_dq(*args),
+                *flash_attention.flash_attention_backward_dkv(*args))
+        refs = flash_attention.attention_backward_plain(*args)
+        torch.cuda.synchronize()
+        errs, tols = {}, {}
+        for name, out, ref in zip(("dq", "dk", "dv"), outs, refs):
+            atol, rtol = tols[name] = flash_bwd_tol(dtype, ref)
+            diff = (out.float() - ref.float()).abs()
+            errs[name] = float(diff.max())
+            if not bool((diff <= atol + rtol * ref.float().abs()).all()):
+                raise AssertionError(
+                    f"flash backward kernel != plain at {(n, h, lq, lk, d)} "
+                    f"{dtype}: max abs error of {name} {errs[name]}")
+        del outs, refs, o
+        flush = l2_flush.zero_
+        size, work = q.element_size() * d * n * h, 2.0 * n * h * lq * lk * d
+        rows_bytes = 2 * 4 * n * h * lq  # lse and delta
+        # dQ: reads q, k, v, dO, lse, delta, writes dQ; three products
+        dq_bound = bound_ms(size * (3 * lq + 2 * lk) + rows_bytes,
+                            3 * work, PEAK_FLOPS[dtype])
+        # dK/dV: reads q, k, v, dO, lse, delta, writes dK, dV; four products
+        dkv_bound = bound_ms(size * (2 * lq + 4 * lk) + rows_bytes,
+                             4 * work, PEAK_FLOPS[dtype])
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                      for t in (q, k, v))
+        with torch.enable_grad():
+            sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        dot = do.transpose(1, 2)
+        row = dict(
+            shape=[n, h, lq, lk, d], dtype=str(dtype).replace("torch.", ""),
+            max_abs_err=errs, tolerance=tols,
+            dq_ms=cuda_ms(lambda: flash_attention.flash_attention_backward_dq(
+                *args), flush),
+            dq_device_ms=device_ms(
+                lambda: flash_attention.flash_attention_backward_dq(*args),
+                "flash_bwd_dq_kernel", flush),
+            dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+            dkv_ms=cuda_ms(
+                lambda: flash_attention.flash_attention_backward_dkv(*args),
+                flush),
+            dkv_device_ms=device_ms(
+                lambda: flash_attention.flash_attention_backward_dkv(*args),
+                "flash_bwd_dkv_kernel", flush),
+            dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+            plain_ms=cuda_ms(
+                lambda: flash_attention.attention_backward_plain(*args),
+                flush),
+            sdpa_backward_ms=cuda_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qt, kt, vt), dot, retain_graph=True), flush))
+        print("flash backward kernels:", json.dumps(row), flush=True)
+        rows.append(row)
+        del q, k, v, do, qt, kt, vt, dot, sdpa_out, args, lse, delta
+    return rows
+
+
+def flash_counts():
+    return {k: flash_attention.launches[k]
+            for k in ("forward", "backward_dq", "backward_dkv")}
+
+
+def schedule_cfg():
+    schedule = load_python_config(SCHEDULE)
+    return schedule["optimizer"], schedule["lr_config"]
+
+
+def snapshot(model):
+    return {name: t.detach().clone() for name, t in
+            list(model.named_parameters()) + list(model.named_buffers())}
+
+
+def setr_train_phase(device):
+    model = init_model(SETR_CONFIG, device=device)
+    if model.auxiliary_head is None:
+        raise AssertionError("SETR's aux head is missing")
+    if model.backbone.depth != SETR_LAYERS:
+        raise AssertionError(f"ViT-S has {model.backbone.depth} layers")
+    randomize_(model, seed=0)
+    optimizer_cfg, lr_config = schedule_cfg()
+    state = create_train_state(model, optimizer_cfg, lr_config)
+    train_step = make_train_step(state.model, state.optimizer,
+                                 state.scheduler)
+    _, x, masks = synthetic_batch(device, TRAIN_BATCH, TRAIN_IMAGE_SIZE)
+    gt = torch.from_numpy(masks).to(device).long()
+    generator = torch.Generator(device=device).manual_seed(0)
+    before = snapshot(model)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    logs, step_ms, per_step, rates = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        rates.append(state.optimizer.param_groups[0]["lr"])
+        counts = flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs.append(train_step(x, gt, generator))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        state.step += 1
+        per_step.append({k: v - counts[k] for k, v in flash_counts().items()})
+    launches = flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    losses = [{k: float(v) for k, v in log.items()} for log in logs]
+    for i, (log, counts) in enumerate(zip(losses, per_step)):
+        if any(n != SETR_LAYERS for n in counts.values()):
+            raise AssertionError(f"step {i + 1} launched {counts}, not "
+                                 f"{SETR_LAYERS} of each flash kernel")
+        if not all(math.isfinite(v) for v in log.values()):
+            raise AssertionError(f"step {i + 1}: non-finite log {log}")
+    if not losses[-1]["loss"] < losses[0]["loss"]:
+        raise AssertionError(f"the loss did not fall: "
+                             f"{[log['loss'] for log in losses]}")
+    after = snapshot(model)
+    still = [name for name, t in before.items()
+             if not name.endswith("num_batches_tracked")
+             and torch.equal(t, after[name])]
+    if still:
+        raise AssertionError(f"unchanged after {TRAIN_STEPS} steps: {still}")
+    aux_grads = [p.grad for p in model.auxiliary_head.parameters()]
+    if any(g is None or not bool(g.abs().sum() > 0) for g in aux_grads):
+        raise AssertionError("the aux head got no gradient")
+    print("setr train slice: " + json.dumps(dict(
+        batch=list(x.shape), steps=TRAIN_STEPS, lr=rates,
+        loss=[log["loss"] for log in losses],
+        decode_loss_ce=[log["decode.loss_ce"] for log in losses],
+        aux_loss_ce=[log["aux.loss_ce"] for log in losses],
+        decode_acc_seg=[log["decode.acc_seg"] for log in losses],
+        ms_per_step=statistics.median(step_ms[1:]), step_ms=step_ms,
+        peak_memory_gb=peak_gb, launches=launches)), flush=True)
+    print_breakdown("setr train step", lambda: train_step(x, gt, generator))
+    return launches
+
+
+def agreement_inputs():
+    """The full-size SETR config without drop path on the CPU, from seeded
+    weights, and a batch of AGREE_BATCH synthetic images."""
+    network = load_python_config(SETR_CONFIG)["model"]
+    network["backbone"]["drop_path_rate"] = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        config = Path(tmp) / "setr_pup_vit-s_no_drop_path.py"
+        config.write_text(f"model = {network!r}\n")
+        model = init_model(config, device="cpu")
+    randomize_(model, seed=1)
+    _, x, masks = synthetic_batch("cpu", AGREE_BATCH, AGREE_IMAGE_SIZE)
+    return model, x, torch.from_numpy(masks).long()
+
+
+def one_train_step(model, x, gt, device):
+    """One ``make_train_step`` step of ``model`` (already on ``device``)
+    with the kvasir schedule; the loss."""
+    optimizer_cfg, lr_config = schedule_cfg()
+    state = create_train_state(model, optimizer_cfg, lr_config)
+    step = make_train_step(state.model, state.optimizer, state.scheduler)
+    dtype = next(model.parameters()).dtype
+    log = step(x.to(device=device, dtype=dtype), gt.to(device),
+               torch.Generator(device=device).manual_seed(0))
+    return float(log["loss"])
+
+
+def attention_in_input_dtype(q, k, v, scale):
+    """Plain attention with no float32 cast, for the float64 reference."""
+    scores = torch.einsum("nlhd,nshd->nhls", q, k) * scale
+    return torch.einsum("nhls,nshd->nlhd", torch.softmax(scores, dim=-1), v)
+
+
+def layer_norm_in_input_dtype(self, x):
+    return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                        self.eps)
+
+
+def setr_train_agreement_phase(device):
+    """One train step from the same weights on the card (the kernels, in
+    float32) and on the CPU in float64 (the plain versions; attention and
+    LayerNorm without the float32 casts the port shares with the JAX
+    package, the losses with theirs)."""
+    model, x, gt = agreement_inputs()
+    gpu_model = copy.deepcopy(model).to(device)
+    before = {k: t.double() for k, t in snapshot(model).items()}
+    ref_model = model.double()
+    with mock.patch.object(vit, "multihead_attention",
+                           attention_in_input_dtype), \
+            mock.patch.object(LayerNorm, "forward", layer_norm_in_input_dtype):
+        ref_loss = one_train_step(ref_model, x, gt, torch.device("cpu"))
+    reset_counts()
+    gpu_loss = one_train_step(gpu_model, x, gt, device)
+    torch.cuda.synchronize()
+    launches = flash_counts()
+    if any(n != SETR_LAYERS for n in launches.values()):
+        raise AssertionError(f"the card's step launched {launches}")
+    if abs(gpu_loss - ref_loss) > 1e-4 * abs(ref_loss):
+        raise AssertionError(f"loss {gpu_loss} on the card, {ref_loss} in "
+                             f"float64 on the CPU")
+    used = {"grad": {}, "update": {}}  # error / allowed error, per tensor
+    grad_shares = {}  # error / max |g|, the gradients' own scale
+    gpu_params = dict(gpu_model.named_parameters())
+    ulp = torch.finfo(torch.float32).eps
+    for name, p in ref_model.named_parameters():
+        q = gpu_params[name]
+        g_max = float(p.grad.abs().max())
+        for kind, ref, gpu, allowed in (
+                ("grad", p.grad, q.grad, GRAD_RTOL * g_max + GRAD_ATOL),
+                ("update", p.detach(), q.detach(),
+                 GRAD_RTOL * float((p.detach() - before[name]).abs().max())
+                 + ulp * float(before[name].abs().max()))):
+            err = float((gpu.cpu().double() - ref).abs().max())
+            used[kind][name] = err / allowed
+            if kind == "grad":
+                grad_shares[name] = err / (g_max + GRAD_ATOL)
+            if used[kind][name] > 1.0:
+                raise AssertionError(f"{kind} of {name}: max abs error {err} "
+                                     f"against an allowed {allowed}")
+    print("cpu agreement (setr train step): " + json.dumps(dict(
+        batch=[AGREE_BATCH, 3, AGREE_IMAGE_SIZE, AGREE_IMAGE_SIZE],
+        loss_float64=ref_loss, loss_gpu=gpu_loss, launches=launches,
+        tensors=len(grad_shares),
+        grads_over_1e_3_of_max=sum(v > 1e-3 for v in grad_shares.values()),
+        worst_grad_share_of_max=sorted(grad_shares.items(),
+                                       key=lambda kv: -kv[1])[:3],
+        tolerance_used={k: max(v.values()) for k, v in used.items()})),
+        flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing measured")
@@ -513,24 +813,30 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # nvcc runs outside the GIL
-        for build in [pool.submit(confusion.build_library),
-                      pool.submit(flash_attention.build_library)]:
+    builders = (confusion.build_library, flash_attention.build_library,
+                flash_attention.build_backward_library)
+    with ThreadPoolExecutor(len(builders)) as pool:  # nvcc runs outside the GIL
+        for build in [pool.submit(b) for b in builders]:
             build.result()
-    print(f"build: confusion and flash-attention kernels in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: confusion, flash-attention forward and backward kernels "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     l2_flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
     rows = kernel_phase(device, l2_flush)
     flash_rows = flash_phase(device, l2_flush)
+    bwd_rows = flash_backward_phase(device, l2_flush)
     del l2_flush
     model, x_nchw, launches = slice_phase(device)
     cpu_agreement_phase(model, x_nchw, *SLIDE["crop_size"], "deeplabv3")
     del model, x_nchw
     setr, setr_x, setr_launches = setr_slice_phase(device)
     cpu_agreement_phase(setr, setr_x, 320, 320, "setr")
+    del setr, setr_x
+    train_launches = setr_train_phase(device)
+    setr_train_agreement_phase(device)
 
-    flagship, setr_row = rows[0], flash_rows[0]
+    flagship, setr_row, bwd_row = rows[0], flash_rows[0], bwd_rows[0]
+    bwd_f32 = [r for r in bwd_rows if r["dtype"] == "float32"]
     print(json.dumps({"kernels": [{
         "name": "confusion_histograms",
         "route": "cuda",
@@ -562,7 +868,25 @@ def main():
         "bound_by": setr_row["bound_by"],
         "library_ms": setr_row["sdpa_ms"],
         "sdpa_ms": setr_row["sdpa_ms"],
-    }]}))
+    }] + [{
+        "name": f"flash_attention_backward_{part}",
+        "route": "cuda",
+        "source": "image_segmentation_lab_tpu_torch/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": f"image_segmentation_lab_tpu/ops/pallas/"
+                    f"flash_attention.py:{line}",
+        "launches": train_launches[f"backward_{part}"],
+        "max_abs_err": max(max(r["max_abs_err"][g] for g in grads)
+                           for r in bwd_f32),
+        "ms": bwd_row[f"{part}_ms"],
+        "device_ms": bwd_row[f"{part}_device_ms"],
+        # the plain version and SDPA compute dQ, dK and dV in one call
+        "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row[f"{part}_bound_ms"],
+        "bound_by": bwd_row[f"{part}_bound_by"],
+        "library_ms": bwd_row["sdpa_backward_ms"],
+    } for part, line, grads in (("dq", 156, ("dq",)),
+                                ("dkv", 187, ("dk", "dv")))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """The port's registries, one instance each, created in one place.
 
-Only the registries the inference slice fills exist so far; the others
-(datasets, losses, optimizers, ...) arrive with the modules that fill them.
+Only the registries the ported slices fill exist so far; the others
+(datasets, samplers, ...) arrive with the modules that fill them.
 """
 
 from ..registry import Register
@@ -14,6 +14,10 @@ BACKBONE = Register("backbone")
 NECK = Register("neck")
 DECODEHEAD = Register("decodehead")
 SEGMENTOR = Register("segmentor")
+LOSS = Register("loss")
+OPTIMIZER = Register("optimizer")
+LR_SCHEDULER = Register("lr_scheduler")
 
 __all__ = ["ACTIVATION", "CONVOLUTION", "DROPOUT", "NORMALIZATION",
-           "BACKBONE", "NECK", "DECODEHEAD", "SEGMENTOR"]
+           "BACKBONE", "NECK", "DECODEHEAD", "SEGMENTOR", "LOSS", "OPTIMIZER",
+           "LR_SCHEDULER"]

@@ -11,8 +11,8 @@ from collections.abc import Mapping
 from typing import Any, Dict, Optional, Tuple
 
 from ..core.registry_hub import (ACTIVATION, BACKBONE, CONVOLUTION,
-                                 DECODEHEAD, DROPOUT, NECK, NORMALIZATION,
-                                 SEGMENTOR)
+                                 DECODEHEAD, DROPOUT, LOSS, NECK,
+                                 NORMALIZATION, SEGMENTOR)
 from ..registry import Register
 
 # registries buildable through build_module_from_cfg
@@ -86,6 +86,11 @@ def build_module_from_cfg(cfg: Dict, registry: Register,
     obj_type = args.pop("type")
     obj_cls = registry.get(obj_type) if isinstance(obj_type, str) else obj_type
     return obj_cls(**args)
+
+
+def build_loss(cfg: Dict):
+    layer_type, cfg_ = _typed_cfg(cfg)
+    return LOSS.get(layer_type)(**cfg_)
 
 
 def build_segmentor(cfg: Dict):

@@ -1,18 +1,26 @@
-"""BaseDecodeHead, inference part (counterpart of
-``models/decode_heads/decode_head.py``).
+"""BaseDecodeHead (counterpart of ``models/decode_heads/decode_head.py``).
 
 * the ``in_channels``/``in_index``/``input_transform`` contract
   (``None``, ``'resize_concat'``, ``'multiple_select'``);
 * binary segmentation: ``out_channels == 1`` with threshold default 0.3;
+* ``loss_decode`` as a dict or a list of dicts, summed per ``loss_name``
+  (default: softmax ``CrossEntropyLoss``);
 * ``cls_seg``: ``Dropout2d`` then the 1x1 ``conv_seg`` classifier, whose
-  default init is normal(0, 0.01) with a zero bias.
+  default init is normal(0, 0.01) with a zero bias;
+* ``forward_train`` returns ``(seg_logits, losses)``; ``losses()`` resizes
+  the logits to the label size, applies each loss and ``acc_seg`` (a
+  one-channel head's accuracy is taken against its threshold), then
+  optionally rescales to ``ori_img_size_hw`` (a tuple for a uniform batch,
+  a list for per-image sizes).
 
-The head keeps its ``loss_decode``/``sampler`` config, but losses and
-``forward_train`` are not ported yet.
+A pixel ``sampler`` (OHEM) is kept in the config but not ported: the
+losses raise when one is set.
 """
 
 from __future__ import annotations
 
+import math
+from collections.abc import Mapping
 from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
@@ -21,6 +29,8 @@ from torch import nn
 from ...utils.ops import resize
 from ..basic.convolution import Conv2d
 from ..basic.drop import Dropout2d
+from ..builder import build_loss
+from ..losses import accuracy
 
 DEFAULT_ACT = object()
 DEFAULT_BINARY_THRESHOLD = 0.3
@@ -65,7 +75,16 @@ class BaseDecodeHead(nn.Module):
         self.act_cfg = dict(type="ReLU") if act_cfg is DEFAULT_ACT else act_cfg
         self.in_index = in_index
         self.input_transform = input_transform
-        self.loss_decode = loss_decode
+        if loss_decode is None:
+            loss_decode = dict(type="CrossEntropyLoss", use_sigmoid=False,
+                               loss_weight=1.0)
+        if isinstance(loss_decode, Mapping):
+            self.losses_decode = (build_loss(loss_decode),)
+        elif isinstance(loss_decode, (list, tuple)):
+            self.losses_decode = tuple(build_loss(c) for c in loss_decode)
+        else:
+            raise TypeError(f"loss_decode must be a dict or sequence of "
+                            f"dict, but got {type(loss_decode)}")
         self.ignore_index = ignore_index
         self.sampler = sampler
         self.align_corners = align_corners
@@ -120,5 +139,49 @@ class BaseDecodeHead(nn.Module):
             feat = self.dropout(feat)
         return self.conv_seg(feat)
 
+    def forward_train(self, inputs, gt_semantic_seg, meta_infos=None,
+                      rescale: bool = False):
+        return self.losses(self(inputs), gt_semantic_seg, meta_infos,
+                           rescale=rescale)
+
     def forward_test(self, inputs):
         return self(inputs)
+
+    def losses(self, seg_logit, seg_label, meta_infos=None,
+               rescale: bool = False):
+        """``(logits, loss dict)``; ``seg_label`` is ``(N, H, W)``."""
+        if self.sampler is not None:
+            raise NotImplementedError(
+                "pixel samplers (OHEM) are not ported yet (ROADMAP Queue 1)")
+        seg_logit = resize(seg_logit, size=seg_label.shape[1:],
+                           mode="bilinear", align_corners=self.align_corners)
+        loss = {}
+        for loss_decode in self.losses_decode:
+            value = loss_decode(seg_logit, seg_label,
+                                ignore_index=self.ignore_index)
+            name = loss_decode.loss_name
+            loss[name] = loss[name] + value if name in loss else value
+
+        acc_logit = seg_logit
+        if seg_logit.shape[1] == 1:
+            # binary head: pair the logit with the threshold's logit so the
+            # accuracy reflects sigmoid(x) > threshold
+            t = self.resolved_threshold()
+            acc_logit = torch.cat([torch.full_like(
+                seg_logit, math.log(t / max(1.0 - t, 1e-8))), seg_logit],
+                dim=1)
+        loss["acc_seg"] = accuracy(acc_logit, seg_label,
+                                   ignore_index=self.ignore_index)
+
+        ori_img_size = (meta_infos or {}).get("ori_img_size_hw")
+        if not (rescale and ori_img_size):
+            return seg_logit, loss
+        if isinstance(ori_img_size, tuple):
+            return resize(seg_logit, size=ori_img_size, mode="bilinear",
+                          align_corners=self.align_corners), loss
+        if isinstance(ori_img_size, list):
+            assert len(seg_logit) == len(ori_img_size)
+            return [resize(seg_logit[i][None], size=tuple(size),
+                           mode="bilinear", align_corners=self.align_corners)
+                    for i, size in enumerate(ori_img_size)], loss
+        raise TypeError(f"bad ori_img_size_hw {ori_img_size!r}")

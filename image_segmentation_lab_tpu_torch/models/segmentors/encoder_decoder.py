@@ -9,9 +9,11 @@ canvas (in place) and divided by a count map computed on the host.
 Submodules are named ``backbone``, ``neck``, ``decode_head`` and
 ``auxiliary_head`` (a list of aux heads: ``auxiliary_head.<i>``, JAX path
 ``auxiliary_head_<i>``), as in the JAX parameter tree.  ``forward`` is
-``inference``.  ``forward_train``, test-time augmentation (with the train/
-test dispatch of the JAX ``BaseSegmentor``) and panoptic/instance output are
-not ported yet.
+``inference``; ``forward_train`` returns ``({'decode': ..., 'aux': ...},
+{'decode.loss_ce': ..., 'aux.loss_ce': ..., ...})`` (a list of aux heads
+gives ``aux_<i>`` keys).  Test-time augmentation (with the train/test
+dispatch of the JAX ``BaseSegmentor``) and panoptic/instance output are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from torch import nn
 
 from ...core.registry_hub import BACKBONE, DECODEHEAD, NECK, SEGMENTOR
-from ...utils.ops import resize
+from ...utils.ops import add_prefix, resize
 from ..builder import build_module_from_cfg
 
 
@@ -114,6 +116,26 @@ class EncoderDecoder(nn.Module):
         out = self.decode_head.forward_test(self.extract_feat(img))
         return resize(out, size=img.shape[2:], mode="bilinear",
                       align_corners=self.align_corners)
+
+    def forward_train(self, img, gt_semantic_seg, meta_infos=None,
+                      rescale: bool = False):
+        """Logits and losses of the decode head and every aux head."""
+        x = self.extract_feat(img)
+        seg_logits, losses = {}, {}
+        seg_logits["decode"], loss = self.decode_head.forward_train(
+            x, gt_semantic_seg, meta_infos, rescale=rescale)
+        losses.update(add_prefix(loss, "decode"))
+        if isinstance(self.auxiliary_head, nn.ModuleList):
+            seg_logits["aux"] = {}
+            for idx, head in enumerate(self.auxiliary_head):
+                seg_logits["aux"][idx], loss = head.forward_train(
+                    x, gt_semantic_seg, meta_infos, rescale=rescale)
+                losses.update(add_prefix(loss, f"aux_{idx}"))
+        elif self.auxiliary_head is not None:
+            seg_logits["aux"], loss = self.auxiliary_head.forward_train(
+                x, gt_semantic_seg, meta_infos, rescale=rescale)
+            losses.update(add_prefix(loss, "aux"))
+        return seg_logits, losses
 
     def _rescale(self, seg_logit, ori_img_size, rescale):
         if rescale and ori_img_size is not None:

@@ -1,6 +1,6 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain
-version (counterpart of ``image_segmentation_lab_tpu/ops/pallas/
-flash_attention.py``, forward only).
+"""Flash attention: the hand-written CUDA kernels, forward and backward,
+and their plain versions (counterpart of ``image_segmentation_lab_tpu/ops/
+pallas/flash_attention.py``).
 
 ``flash_attention_forward(q, k, v, scale) -> (o, lse)`` takes ``q (N, Lq,
 h, d)`` and ``k/v (N, Lk, h, d)``, float32 or bfloat16, ``Lq != Lk``
@@ -8,15 +8,21 @@ allowed, and returns ``o = softmax(q kᵀ·scale) v`` as a contiguous ``(N,
 Lq, h, d)`` tensor in q's dtype and the per-row logsumexp ``lse (N, h,
 Lq)`` in float32.  Scores and the softmax are float32 and the
 probabilities are cast to v's dtype for the PV product, as in the einsum
-path of ``image_segmentation_lab_tpu/ops/attention.py``.
+path of ``image_segmentation_lab_tpu/ops/attention.py``.  When grad is on
+and an input requires it, the call goes through ``FlashAttention``, a
+``torch.autograd.Function`` whose backward is
+``flash_attention_backward``: ``delta = rowsum(dO·O)`` in plain torch, as
+the JAX ``_flash_backward`` computes it outside its kernels, then the dQ
+kernel and the dK/dV kernel, which recompute the probabilities from the
+saved lse.
 
-For a CPU tensor the wrapper computes the plain PyTorch version
-(``attention_plain``); for a CUDA tensor it launches the kernel
-(``csrc/flash_attention.cu``, built at first use by ``ops/nvcc_build.py``)
-or raises.  The kernel reads q, k and v through their strides (the head
-dim must be contiguous), so the slices of a fused qkv projection need no
-copy.  It has no backward yet: a CUDA call that would need a gradient
-raises.
+For CPU tensors each wrapper computes the plain PyTorch version
+(``attention_plain``, ``attention_backward_plain``); for CUDA tensors it
+launches its kernel (``csrc/flash_attention.cu`` forward,
+``csrc/flash_attention_bwd.cu`` backward, built at first use by
+``ops/nvcc_build.py``) or raises.  The kernels read q, k, v and dO through
+their strides (the head dim must be contiguous), so the slices of a fused
+qkv projection need no copy.
 """
 
 from __future__ import annotations
@@ -29,15 +35,16 @@ import torch
 from .nvcc_build import load_library
 
 SUPPORTED_HEAD_DIMS = (32, 48, 64)
-_MAX_GRID_YZ = 65535  # heads and batch are the kernel's grid y and z
+_MAX_GRID_YZ = 65535  # heads and batch are the kernels' grid y and z
 
-# launches, counted where the kernel is launched and nowhere else
-launches = {"forward": 0}
+# launches, counted where each kernel is launched and nowhere else
+launches = {"forward": 0, "backward_dq": 0, "backward_dkv": 0}
 _lib = None
+_bwd_lib = None
 
 
 def build_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash) and load the forward kernel."""
     global _lib
     if _lib is not None:
         return _lib
@@ -55,7 +62,28 @@ def build_library() -> ctypes.CDLL:
     return lib
 
 
-# ------------------------------------------------------------ plain version
+def build_backward_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the dQ and dK/dV kernels."""
+    global _bwd_lib
+    if _bwd_lib is not None:
+        return _bwd_lib
+    lib = load_library("flash_attention_bwd.cu")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for dtype in ("f32", "bf16"):
+        # q, k, v, dO, lse, delta, outputs..., n, h, lq, lk, d, strides,
+        # scale, stream
+        for name, outs in (("dq", 1), ("dkv", 2)):
+            fn = getattr(lib, f"flash_attention_backward_{name}_{dtype}")
+            fn.argtypes = ([ptr] * (6 + outs) + [i32] * 5
+                           + [ptr, ctypes.c_float, ptr])
+            fn.restype = i32
+    lib.flash_attention_backward_error_string.argtypes = [i32]
+    lib.flash_attention_backward_error_string.restype = ctypes.c_char_p
+    _bwd_lib = lib
+    return lib
+
+
+# ------------------------------------------------------------ plain versions
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Einsum, float32 softmax, cast to v's dtype, einsum."""
@@ -65,7 +93,27 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, torch.logsumexp(scores, dim=-1)
 
 
-# ------------------------------------------------------------ wrapper
+def attention_backward_plain(q, k, v, do, lse, delta, scale):
+    """``(dq, dk, dv)`` with the TPU backward kernels' arithmetic, whole:
+    P from the saved lse, products in float32, P cast to dO's dtype for
+    dV and dS to k's (q's) dtype for dQ (dK)."""
+    qf, kf, dof = q.float(), k.float(), do.float()
+    p = torch.exp(torch.einsum("nlhd,nshd->nhls", qf, kf) * scale
+                  - lse[..., None])
+    dp = torch.einsum("nlhd,nshd->nhls", dof, v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("nhls,nshd->nlhd", ds.to(k.dtype).float(), kf)
+    dk = torch.einsum("nhls,nlhd->nshd", ds.to(q.dtype).float(), qf)
+    dv = torch.einsum("nhls,nlhd->nshd", p.to(do.dtype).float(), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def backward_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO·O)`` in float32, ``(N, h, Lq)`` like lse."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+# ------------------------------------------------------------ wrappers
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q (N, Lq, h, d) and k, v (N, Lk, h, d), "
@@ -88,27 +136,39 @@ def _check(q, k, v):
         raise ValueError(f"unsupported device {q.device}")
 
 
-def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, scale: float
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(o, lse)`` of softmax attention; see the module docstring."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "the flash-attention kernel has no backward yet (the TPU "
-            "kernels _bwd_dq_kernel and _bwd_dkv_kernel, ROADMAP Queue 2 "
-            "items 4-5); run it under torch.no_grad()")
-    n, lq, h, d = q.shape
-    lk = k.shape[1]
+def _check_kernel_inputs(*tensors):
+    """What the CUDA kernels take beyond ``_check``."""
+    n, _, h, d = tensors[0].shape
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} is not supported by the kernel; "
                          f"supported: {SUPPORTED_HEAD_DIMS}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
+    if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("the kernel needs a contiguous head dim")
     if n > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
         raise ValueError(f"batch {n} or heads {h} above {_MAX_GRID_YZ}")
+
+
+def _strides(*tensors):
+    """(batch, position, head) element strides of each tensor, flat."""
+    flat = [t.stride(i) for t in tensors for i in (0, 1, 2)]
+    return (ctypes.c_int64 * len(flat))(*flat)
+
+
+def _launch(fn, error_string, q, args):
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"flash-attention kernel launch failed: "
+                           f"{error_string(err).decode()}")
+
+
+def _forward(q, k, v, scale):
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    _check_kernel_inputs(q, k, v)
+    n, lq, h, d = q.shape
+    lk = k.shape[1]
     o = torch.empty((n, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((n, h, lq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -116,16 +176,109 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     lib = build_library()
     fn = (lib.flash_attention_forward_f32 if q.dtype == torch.float32
           else lib.flash_attention_forward_bf16)
-    strides = (ctypes.c_int64 * 9)(*[t.stride(i) for t in (q, k, v)
-                                     for i in (0, 1, 2)])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), n, h, lq, lk, d, strides, float(scale),
-                 stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash-attention kernel launch failed: "
-            f"{lib.flash_attention_error_string(err).decode()}")
+    _launch(fn, lib.flash_attention_error_string, q,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), n, h, lq, lk, d, _strides(q, k, v),
+             float(scale)))
     launches["forward"] += 1
     return o, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(o, lse)`` with a backward through the dQ and dK/dV kernels; lse
+    carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = _forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, o, lse, do, ctx.scale),
+                None)
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)`` of softmax attention; see the module docstring."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
+
+
+def _check_backward(q, k, v, do, lse, delta):
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    rows = (q.shape[0], q.shape[2], q.shape[1])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != rows or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 {rows} "
+                             f"tensor on {q.device}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+
+
+def flash_attention_backward_dq(q, k, v, do, lse, delta, scale):
+    """dQ ``(N, Lq, h, d)`` in q's dtype, from the dQ kernel."""
+    _check_backward(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, do, lse, delta, scale)[0]
+    _check_kernel_inputs(q, k, v, do)
+    n, lq, h, d = q.shape
+    dq = torch.empty((n, lq, h, d), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    lib = build_backward_library()
+    fn = (lib.flash_attention_backward_dq_f32 if q.dtype == torch.float32
+          else lib.flash_attention_backward_dq_bf16)
+    _launch(fn, lib.flash_attention_backward_error_string, q,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, h, lq,
+             k.shape[1], d, _strides(q, k, v, do), float(scale)))
+    launches["backward_dq"] += 1
+    return dq
+
+
+def flash_attention_backward_dkv(q, k, v, do, lse, delta, scale):
+    """``(dK, dV)``, each ``(N, Lk, h, d)`` in k's dtype, from the dK/dV
+    kernel."""
+    _check_backward(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, do, lse, delta, scale)[1:]
+    _check_kernel_inputs(q, k, v, do)
+    n, lq, h, d = q.shape
+    lk = k.shape[1]
+    dk = torch.empty((n, lk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    if dk.numel() == 0:
+        return dk, dv
+    lib = build_backward_library()
+    fn = (lib.flash_attention_backward_dkv_f32 if q.dtype == torch.float32
+          else lib.flash_attention_backward_dkv_bf16)
+    _launch(fn, lib.flash_attention_backward_error_string, q,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             n, h, lq, lk, d, _strides(q, k, v, do), float(scale)))
+    launches["backward_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, o, lse, do, scale):
+    """``(dq, dk, dv)`` of ``flash_attention_forward``'s ``o`` for the
+    output gradient ``do``: delta in plain torch, then both kernels."""
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    delta = backward_delta(o, do)
+    dq = flash_attention_backward_dq(q, k, v, do, lse, delta, scale)
+    return (dq, *flash_attention_backward_dkv(q, k, v, do, lse, delta,
+                                              scale))

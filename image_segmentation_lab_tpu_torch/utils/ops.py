@@ -1,4 +1,4 @@
-"""Resize and upsample (counterpart of ``utils/ops.py``).
+"""Resize, upsample and ``add_prefix`` (counterpart of ``utils/ops.py``).
 
 ``resize`` is ``F.interpolate`` on NCHW tensors, with the reference's
 advisory when ``align_corners=True`` meets sizes that do not line up.  The
@@ -54,3 +54,8 @@ class Upsample(nn.Module):
         size = (int(x.shape[2] * sf[0]), int(x.shape[3] * sf[1]))
         return resize(x, size=size, mode=self.mode,
                       align_corners=self.align_corners, warning=False)
+
+
+def add_prefix(inputs: dict, prefix: str) -> dict:
+    """``{k: v}`` -> ``{f'{prefix}.{k}': v}``."""
+    return {f"{prefix}.{name}": value for name, value in inputs.items()}

@@ -2,10 +2,13 @@
 
 On a CPU tensor ``flash_attention_forward`` and ``multihead_attention`` run
 the plain version, held here to the JAX flash kernel in interpret mode and
-to its einsum path.  Tolerances are those of ``tests/test_flash_attention``:
-atol 2e-6 / rtol 1e-5 in float32 at unit-normal inputs (float32 reduction
-order), 2e-2 / 2e-2 in bfloat16 (one bf16 rounding of the probabilities,
-taken before or after the normalisation).
+to its einsum path; under grad they go through the ``FlashAttention``
+Function, whose CPU backward is ``attention_backward_plain``, held to
+``jax.vjp`` of the JAX flash kernel in interpret mode.  Tolerances are
+those of ``tests/test_flash_attention``: atol 2e-6 / rtol 1e-5 (values)
+and 2e-5 / 1e-4 (gradients) in float32 at unit-normal inputs (float32
+reduction order), 2e-2 / 2e-2 in bfloat16 (one bf16 rounding of the
+probabilities, taken before or after the normalisation).
 """
 
 import ast
@@ -25,6 +28,8 @@ from image_segmentation_lab_tpu_torch.ops import (  # noqa: E402
     attention, flash_attention)
 
 F32 = dict(atol=2e-6, rtol=1e-5)
+F32_GRAD = dict(atol=2e-5, rtol=1e-4)
+BF16 = dict(atol=2e-2, rtol=2e-2)
 # (B, Lq, Lk, d) of tests/test_flash_attention.py; the port's layout is
 # (N, L, h, d), so B is split into N x h for the multi-head cases
 SHAPES = {
@@ -92,6 +97,83 @@ def test_bf16_matches_the_jax_flash_kernel():
                                atol=2e-2, rtol=2e-2)
 
 
+def jax_grads(q, k, v, do, scale):
+    """``jax.vjp`` of the JAX flash kernel (interpret mode, 64-blocks)."""
+    _, vjp = jax.vjp(lambda *a: jflash.flash_attention(*a, scale, 64, 64,
+                                                       True), q, k, v)
+    return vjp(do)
+
+
+def to_port(x, N, h):
+    """JAX's heads-major fold (h·N, L, d) -> the port's (N, L, h, d)."""
+    B, L, d = x.shape
+    return torch.from_numpy(
+        np.asarray(x).reshape(h, N, L, d).transpose(1, 2, 0, 3).copy())
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_backward_matches_the_jax_flash_kernel(name):
+    """``attention_backward_plain`` on the forward's o and lse, and the
+    Function's backward through ``multihead_attention``, with the batch of
+    the JAX kernel split into N x h as ``ops/attention.py`` folds heads."""
+    (B, Lq, Lk, d), (N, h) = SHAPES[name]
+    q, k, v = qkv(B, Lq, Lk, d, seed=3)
+    do = np.random.RandomState(4).randn(B, Lq, d).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    refs = [to_port(g, N, h) for g in jax_grads(q, k, v, do, scale)]
+
+    tq, tk, tv, tdo = (to_port(x, N, h) for x in (q, k, v, do))
+    o, lse = flash_attention.flash_attention_forward(tq, tk, tv, scale)
+    delta = flash_attention.backward_delta(o, tdo)
+    assert delta.shape == lse.shape == (N, h, Lq)
+    plain = flash_attention.attention_backward_plain(tq, tk, tv, tdo, lse,
+                                                     delta, scale)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    with torch.enable_grad():
+        out = attention.multihead_attention(*leaves, scale)
+        assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+        grads = torch.autograd.grad(out, leaves, tdo)
+    for what, got in (("plain", plain), ("function", grads)):
+        for g, ref, name_ in zip(got, refs, ("dq", "dk", "dv")):
+            np.testing.assert_allclose(g.numpy(), ref.numpy(),
+                                       err_msg=f"{what} {name_}", **F32_GRAD)
+
+
+def test_bf16_backward_matches_the_jax_flash_kernel():
+    B, L, d = 2, 96, 64
+    rng = np.random.RandomState(5)
+    q, k, v, do = (jnp.asarray(rng.randn(B, L, d), jnp.bfloat16)
+                   for _ in range(4))
+    scale = 1.0 / np.sqrt(d)
+    refs = jax_grads(q, k, v, do, scale)
+    tq, tk, tv, tdo = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+                       .to(torch.bfloat16)[:, :, None]
+                       for x in (q, k, v, do))
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    with torch.enable_grad():
+        out, _ = flash_attention.flash_attention_forward(*leaves, scale)
+        grads = torch.autograd.grad(out, leaves, tdo)
+    for g, ref, name_ in zip(grads, refs, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g[:, :, 0].float().numpy(),
+                                   np.asarray(ref.astype(jnp.float32)),
+                                   err_msg=name_, **BF16)
+
+
+def test_backward_wrappers_reject_mismatched_rows():
+    q = torch.zeros(2, 5, 3, 32)
+    lse = torch.zeros(2, 3, 5)
+    for bad in (dict(do=q[:, :4]), dict(lse=lse.transpose(1, 2)),
+                dict(delta=lse.double())):
+        args = {**dict(do=q, lse=lse, delta=lse), **bad}
+        with pytest.raises(ValueError):
+            flash_attention.flash_attention_backward_dq(
+                q, q, q, args["do"], args["lse"], args["delta"], 0.5)
+        with pytest.raises(ValueError):
+            flash_attention.flash_attention_backward_dkv(
+                q, q, q, args["do"], args["lse"], args["delta"], 0.5)
+
+
 BAD_INPUTS = {
     "float64": lambda q, k, v: (q.double(), k.double(), v.double()),
     "mixed_dtypes": lambda q, k, v: (q, k.bfloat16(), v),
@@ -113,19 +195,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_cpu_runs_the_plain_version_and_counts_nothing(monkeypatch):
-    """A CPU tensor never builds or launches the kernel; the plain version
-    keeps the gradient.  Grad is switched on here: other test modules turn
-    it off for the whole process when they are imported."""
-    monkeypatch.setattr(flash_attention, "launches", {"forward": 0})
-    monkeypatch.setattr(flash_attention, "build_library",
-                        lambda: pytest.fail("built the kernel for a CPU "
-                                            "tensor"))
+    """A CPU tensor never builds or launches a kernel, forward or backward;
+    the plain versions give the gradient.  Grad is switched on here: other
+    test modules turn it off for the whole process when they are
+    imported."""
+    counts = {"forward": 0, "backward_dq": 0, "backward_dkv": 0}
+    monkeypatch.setattr(flash_attention, "launches", dict(counts))
+    for builder in ("build_library", "build_backward_library"):
+        monkeypatch.setattr(flash_attention, builder,
+                            lambda: pytest.fail("built a kernel for a CPU "
+                                                "tensor"))
     q = torch.randn(1, 7, 2, 16, requires_grad=True)
     with torch.enable_grad():
         o, _ = flash_attention.flash_attention_forward(q, q, q, 0.25)
         o.sum().backward()
     assert q.grad is not None
-    assert flash_attention.launches == {"forward": 0}
+    assert flash_attention.launches == counts
     with pytest.raises(ValueError, match="force"):
         attention.multihead_attention(q, q, q, 0.25, force="einsum")
 

@@ -5,7 +5,8 @@ machine without it: ``python -m pytest --noconftest -m cuda
 tests/test_torch_port_cuda.py``.  Confusion counts are integers: equality
 is exact.  Flash attention: atol 2e-6 / rtol 1e-5 in float32 at
 unit-normal inputs (float32 reduction order), 2e-2 / 2e-2 in bfloat16, as
-in tests/test_flash_attention.py.
+in tests/test_flash_attention.py; its gradients atol 2e-5 / rtol 1e-4 in
+float32, the JAX tests' gradient tolerance.
 """
 
 import ast
@@ -182,11 +183,103 @@ def test_flash_counts_its_launches(cuda, monkeypatch):
     assert flash_attention.launches == {"forward": 3}
 
 
-def test_flash_under_grad_raises(cuda):
-    q, k, v = flash_inputs("ragged_130", cuda)
-    q.requires_grad_(True)
-    with torch.enable_grad(), pytest.raises(RuntimeError, match="no backward"):
-        flash_attention.flash_attention_forward(q, k, v, 0.125)
+# (N, h, Lq, Lk, d), dtype: the backward kernels at SETR's training shape,
+# d = 32/48/64, Lq != Lk, ragged, and Lk = 65 (63 masked keys in the last
+# tile); q, k, v are views of one fused projection (or q and a fused kv)
+BWD_CASES = {
+    "setr_f32": ((8, 6, 1601, 1601, 64), torch.float32),
+    "setr_bf16": ((8, 6, 1601, 1601, 64), torch.bfloat16),
+    "mit_f32": ((8, 1, 25600, 400, 32), torch.float32),
+    "ragged_130": ((3, 1, 130, 130, 64), torch.float32),
+    "d48_bf16": ((1, 2, 300, 300, 48), torch.bfloat16),
+    "masked_tail": ((2, 3, 63, 65, 32), torch.float32),
+    "lq_ne_lk_d48": ((2, 2, 100, 37, 48), torch.float32),
+}
+
+
+def bwd_tol(ref):
+    """Float32: tests/test_flash_attention.py's gradient tolerance.
+    Bfloat16: one rounding step of the value (2**-7 of it) plus 1e-3 of the
+    tensor's largest value, so that a lost key tile or a wrong cast
+    fails."""
+    if ref.dtype == torch.float32:
+        return dict(atol=2e-5, rtol=1e-4)
+    return dict(atol=1e-3 * ref.float().abs().max().item(), rtol=2.0 ** -7)
+
+
+def projection_views(name, device):
+    (n, h, lq, lk, d), dtype = BWD_CASES[name]
+    g = torch.Generator(device="cpu").manual_seed(
+        sorted(BWD_CASES).index(name))
+
+    def proj(length, parts):
+        x = torch.randn(n, length, parts * h * d, generator=g)
+        x = x.to(device=device, dtype=dtype)
+        return [t.unflatten(-1, (h, d)) for t in x.split(h * d, dim=-1)]
+
+    qkv = proj(lq, 3) if lq == lk else proj(lq, 1) + proj(lk, 2)
+    do = torch.randn(n, lq, h, d, generator=g).to(device=device, dtype=dtype)
+    return (*qkv, do)
+
+
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_flash_backward_kernels_match_plain(cuda, name):
+    q, k, v, do = projection_views(name, cuda)
+    scale = q.shape[-1] ** -0.5
+    with torch.no_grad():
+        o, lse = flash_attention.flash_attention_forward(q, k, v, scale)
+        delta = flash_attention.backward_delta(o, do)
+        args = (q, k, v, do, lse, delta, scale)
+        dq = flash_attention.flash_attention_backward_dq(*args)
+        dk, dv = flash_attention.flash_attention_backward_dkv(*args)
+        refs = flash_attention.attention_backward_plain(*args)
+    for out, ref, t in zip((dq, dk, dv), refs, (q, k, v)):
+        assert out.dtype == t.dtype and out.is_cuda and out.is_contiguous()
+        assert out.shape == t.shape
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **bwd_tol(ref))
+
+
+def test_grad_through_multihead_attention_launches_each_kernel_once(
+        cuda, monkeypatch):
+    """At SETR's qkv layout: one forward and one backward through the
+    Function launch K3, K4 and K5 once each and agree with autograd
+    through the plain version."""
+    counts = {"forward": 0, "backward_dq": 0, "backward_dkv": 0}
+    monkeypatch.setattr(flash_attention, "launches", dict(counts))
+    g = torch.Generator(device="cpu").manual_seed(7)
+    n, lq, h, d = 2, 1601, 6, 64
+    qkv = torch.randn(n, lq, 3 * h * d, generator=g).to(cuda)
+    do = torch.randn(n, lq, h, d, generator=g).to(cuda)
+    grads = {}
+    for force in (None, "plain"):
+        leaf = qkv.clone().requires_grad_(True)
+        with torch.enable_grad():
+            q, k, v = (t.unflatten(-1, (h, d))
+                       for t in leaf.split(h * d, dim=-1))
+            out = attention.multihead_attention(q, k, v, d ** -0.5,
+                                                force=force)
+            grads[force], = torch.autograd.grad(out, leaf, do)
+    assert flash_attention.launches == {"forward": 1, "backward_dq": 1,
+                                        "backward_dkv": 1}
+    torch.testing.assert_close(grads[None], grads["plain"],
+                               **bwd_tol(grads["plain"]))
+
+
+def test_flash_backward_counts_its_launches(cuda, monkeypatch):
+    monkeypatch.setattr(flash_attention, "launches",
+                        {"forward": 0, "backward_dq": 0, "backward_dkv": 0})
+    q, k, v, do = projection_views("ragged_130", cuda)
+    with torch.no_grad():
+        o, lse = flash_attention.flash_attention_forward(q, k, v, 0.125)
+        for _ in range(2):
+            flash_attention.flash_attention_backward(q, k, v, o, lse, do,
+                                                     0.125)
+        delta = flash_attention.backward_delta(o, do)
+        flash_attention.attention_backward_plain(q, k, v, do, lse, delta,
+                                                 0.125)
+    assert flash_attention.launches == {"forward": 1, "backward_dq": 2,
+                                        "backward_dkv": 2}
 
 
 def test_flash_unsupported_head_dim_raises(cuda):
@@ -196,14 +289,19 @@ def test_flash_unsupported_head_dim_raises(cuda):
 
 
 def test_flash_without_library_raises(cuda, monkeypatch, tmp_path):
-    """No compiler, no library: a CUDA tensor raises; the module has no
-    try that could fall back to the plain version."""
+    """No compiler, no library: a CUDA tensor raises, forward and backward;
+    the module has no try that could fall back to the plain version."""
     tree = ast.parse(inspect.getsource(flash_attention))
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    q, k, v, do = projection_views("ragged_130", cuda)
+    with torch.no_grad():
+        o, lse = flash_attention.flash_attention_forward(q, k, v, 0.125)
     monkeypatch.setattr(flash_attention, "_lib", None)
+    monkeypatch.setattr(flash_attention, "_bwd_lib", None)
     monkeypatch.setattr(nvcc_build, "_BUILD_DIR", tmp_path)
     monkeypatch.setattr(nvcc_build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    q, k, v = flash_inputs("ragged_130", cuda)
     with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc not found"):
         flash_attention.flash_attention_forward(q, k, v, 0.125)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc not found"):
+        flash_attention.flash_attention_backward(q, k, v, o, lse, do, 0.125)

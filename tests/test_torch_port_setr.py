@@ -15,8 +15,9 @@ import torch
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
-from torch_port_helpers import (assert_argmax_parity, bridge,  # noqa: E402
-                                init_jax, jax_apply, to_nchw, to_nhwc)
+from torch_port_helpers import (TINY_VIT, assert_argmax_parity,  # noqa: E402,E501
+                                bridge, init_jax, jax_apply,
+                                tiny_setr_network, to_nchw, to_nhwc)
 
 from image_segmentation_lab_tpu.core.initialize.checkpoint import (  # noqa: E402,E501
     save_checkpoint, state_dict_from_variables)
@@ -39,6 +40,8 @@ from image_segmentation_lab_tpu_torch.core.registry_hub import (  # noqa: E402,E
 from image_segmentation_lab_tpu_torch.models.backbones import vit  # noqa: E402,E501
 from image_segmentation_lab_tpu_torch.models.basic import (  # noqa: E402
     DropPath, LayerNorm, Linear)
+from image_segmentation_lab_tpu_torch.models.basic.drop import \
+    use_generator  # noqa: E402
 from image_segmentation_lab_tpu_torch.models.builder import \
     build_segmentor  # noqa: E402
 from image_segmentation_lab_tpu_torch.models.decode_heads import \
@@ -47,8 +50,6 @@ from image_segmentation_lab_tpu_torch.utils.ops import resize  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SETR_CONFIG = "configs/network/setr/setr_pup_vit-s.py"
-TINY_VIT = dict(embed_dims=32, num_layers=2, num_heads=2, patch_size=8,
-                pretrain_img_size=24, out_indices=(0, 1), final_norm=True)
 
 
 def rand(*shape, seed=1):
@@ -124,11 +125,15 @@ def test_unported_vit_features_raise():
 
 def test_drop_path():
     """Identity in eval mode; in training each sample's branch is either
-    zero or scaled by 1 / (1 - p)."""
+    zero or scaled by 1 / (1 - p), with bits from the installed generator
+    only."""
     x = torch.ones(64, 3, 5)
     layer = DropPath(0.25)
     assert layer.eval()(x) is x
-    out = layer.train()(x)
+    with pytest.raises(RuntimeError, match="generator"):
+        layer.train()(x)
+    with use_generator(torch.Generator().manual_seed(0)):
+        out = layer.train()(x)
     per_sample = out.flatten(1)
     kept = per_sample == torch.tensor(1 / 0.75)
     assert (kept | (per_sample == 0)).all() and 0 < kept.sum() < kept.numel()
@@ -142,15 +147,6 @@ def test_registries():
     assert NORMALIZATION.get("LN") is NORMALIZATION.get("LayerNorm") \
         is LayerNorm
     assert DROPOUT.get("DropPath") is DropPath
-
-
-def tiny_setr_network():
-    """configs/network/setr/setr_pup_vit-s.py, cut to the tiny ViT."""
-    network = load_python_config(SETR_CONFIG)["model"]
-    network["backbone"].update(TINY_VIT)
-    for head in ("decode_head", "auxiliary_head"):
-        network[head].update(in_channels=32, channels=8)
-    return network
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ import torch
 from image_segmentation_lab_tpu.core.initialize.checkpoint import \
     state_dict_from_variables
 from image_segmentation_lab_tpu_torch.bridge import load_jax_state_dict
+from image_segmentation_lab_tpu_torch.core.fileio import load_python_config
 
 # the port is compared in float32; on a card cuDNN convs would default to
 # TF32 (about three digits), which no tolerance below allows for
@@ -42,6 +43,23 @@ def tiny_flagship_cfg(test_cfg=None, num_classes=2):
                                              loss_weight=0.4)),
         train_cfg=dict(),
         test_cfg=test_cfg or dict(mode="whole"))
+
+
+# configs/network/setr/setr_pup_vit-s.py cut to 2 layers of width 32, 2
+# heads, patch 8; on 40² images the position table (stored at a 3x3 grid)
+# is resized to the 5x5 patch grid
+TINY_VIT = dict(embed_dims=32, num_layers=2, num_heads=2, patch_size=8,
+                pretrain_img_size=24, out_indices=(0, 1), final_norm=True)
+
+
+def tiny_setr_network():
+    """configs/network/setr/setr_pup_vit-s.py, cut to the tiny ViT."""
+    network = load_python_config("configs/network/setr/"
+                                 "setr_pup_vit-s.py")["model"]
+    network["backbone"].update(TINY_VIT)
+    for head in ("decode_head", "auxiliary_head"):
+        network[head].update(in_channels=32, channels=8)
+    return network
 
 
 def randomize_variables(variables, seed):
