@@ -5,15 +5,18 @@ card, ``nvcc`` and ``nvidia-smi``, and imports no JAX.  Phases, each
 printing its own lines; any failure raises and the exit code is not 0:
 
 1. device: the card's name and power limit;
-2. build: compile the three kernel libraries from ``csrc/`` (confusion,
-   flash-attention forward, flash-attention backward), one ``nvcc`` each,
-   in parallel;
+2. build: compile the four kernel libraries from ``csrc/`` (confusion,
+   flash-attention forward in float32 and in bf16, flash-attention
+   backward), one ``nvcc`` each, in parallel; count the tensor-core
+   instructions (HGMMA, HMMA) in the bf16 forward's SASS, which must not
+   be 0;
 3. confusion kernel: against its plain PyTorch version (exact equality) at
    the eval batches of both slices, at a Cityscapes-sized batch in float32
    and bfloat16, and at a ragged shape with ignored and out-of-range labels;
-4. flash-attention kernel: against its plain version at SETR ViT-S/16's
-   shape at 640² (float32 and bfloat16), at SegFormer-B0 stage 1's
-   ``Lq != Lk`` shape and at a ragged small shape, with q, k and v strided
+4. flash-attention forward kernels (float32 on the CUDA cores, bfloat16
+   on the tensor cores): against their plain version at SETR ViT-S/16's
+   shape at 640² and at SegFormer-B0 stage 1's ``Lq != Lk`` shape (each in
+   float32 and bfloat16) and at a ragged small shape, with q, k and v strided
    views of a fused projection as the models pass them; beside it
    ``F.scaled_dot_product_attention`` as a yardstick (never on the path);
 5. DeepLabV3 slice: full-width DeepLabV3-R50-d8 through ``init_model`` and
@@ -27,6 +30,11 @@ printing its own lines; any failure raises and the exit code is not 0:
    images; exactly 12 flash launches per forward (one per layer), and the
    device time per kernel of one batch from ``torch.profiler``;
 7. cpu agreement: one 320² window of each model, on the CPU and the card;
+   then SETR serving under the kvasir schedule's ``amp=True`` (the bf16
+   policy): 8 forwards with exactly 12 launches of the bf16 kernel each,
+   the evaluator on bf16 logits, the logits against the same bf16 forward
+   with plain attention, and the share of pixels whose class matches the
+   float32 forward;
 8. flash-attention backward kernels (dQ, dK/dV): against their plain
    version at SETR ViT-S/16's training shape (float32 and bfloat16), the
    MiT-like ``Lq != Lk`` shape, a ragged small shape and Lk = 65 (63 masked
@@ -44,24 +52,30 @@ printing its own lines; any failure raises and the exit code is not 0:
    path, batch 2 at 320², one train step from the same weights on the card
    (kernels, float32) and on the CPU in float64 (plain versions, attention
    and LayerNorm without their float32 casts): loss, every gradient and
-   every parameter after the update.
+   every parameter after the update;
+11. SETR train slice under amp: phase 9's 10 steps under the bf16 policy,
+   with 12 launches of the bf16 forward kernel and of each backward kernel
+   per step.
 
 Kernel times: the wrapper's median of 20 calls by CUDA events and the
-kernel's own device time from ``torch.profiler``, with a 96 MB write
-between calls so the inputs come from device memory, not the L2 cache;
+kernel's own device time from ``torch.profiler`` (for SDPA's forward, of
+every kernel it launches), with a 96 MB write between calls so the inputs
+come from device memory, not the L2 cache;
 ``bound_ms`` is the larger of bytes over 3.35 TB/s and operations over the
 card's peak for their type (67 TFLOP/s float32 without tensor cores, 989
 TFLOP/s bfloat16).  The second-to-last line is a JSON object describing
 each kernel; the last line is ``{"ok": true, "device": {...}}``.  Models
-run in float32 with TF32 off.
+run in float32 with TF32 off, except in the amp phases.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -80,6 +94,8 @@ from image_segmentation_lab_tpu_torch.core.evaluation import SegEvaluator
 from image_segmentation_lab_tpu_torch.core.fileio import load_python_config
 from image_segmentation_lab_tpu_torch.core.inference import (inference_model,
                                                              init_model)
+from image_segmentation_lab_tpu_torch.core.mixed_precision import \
+    policy_scope
 from image_segmentation_lab_tpu_torch.models.backbones import vit
 from image_segmentation_lab_tpu_torch.models.basic import LayerNorm
 from image_segmentation_lab_tpu_torch.ops import confusion, flash_attention
@@ -102,10 +118,14 @@ KERNEL_SHAPES = [  # (N, C, H, W), num_classes, dtype
 ]
 FLASH_SHAPES = [  # (N, h, Lq, Lk, d), dtype
     ((8, 6, 1601, 1601, 64), torch.float32),   # SETR ViT-S/16, 640², b8
-    ((8, 6, 1601, 1601, 64), torch.bfloat16),
+    ((8, 6, 1601, 1601, 64), torch.bfloat16),  # the same under amp
     ((8, 1, 25600, 400, 32), torch.float32),   # SegFormer-B0 stage 1, 640²
+    ((8, 1, 25600, 400, 32), torch.bfloat16),
     ((3, 1, 130, 130, 64), torch.float32),     # ragged, small
 ]
+# the device kernel behind each dtype of the forward wrapper
+FLASH_FWD_KERNEL = {torch.float32: "flash_fwd_kernel",
+                    torch.bfloat16: "flash_fwd_sm90_kernel"}
 # tests/test_flash_attention.py's tolerances against the plain version
 FLASH_TOL = {torch.float32: (2e-6, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 IGNORE = 255
@@ -127,6 +147,13 @@ AGREE_BATCH, AGREE_IMAGE_SIZE = 2, 320
 # after the update get GRAD_RTOL of the largest update plus one float32
 # rounding step of the largest parameter, which the card stores.
 GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-6
+# the amp serving logits against the same bf16 forward with plain
+# attention on the card: the two differ by the rounding of each layer's
+# attention output to bf16 (kernel and plain version sum in other orders),
+# carried through 12 layers of bf16 compute.  As the CPU test of the bf16
+# policy against the JAX package: within 2**-4 of the largest |logit|, the
+# same class at 98 % of the pixels
+AMP_LOGIT_SHARE, AMP_ARGMAX_AGREE = 2.0 ** -4, 0.98
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
@@ -184,11 +211,18 @@ def kernel_times(fn, flush=None, runs=1):
     return times, wall
 
 
-def device_ms(fn, kernel, flush, runs=20):
-    """The device time of one launch of the kernel whose name contains
-    ``kernel``, with ``flush()`` before each call."""
-    times, _ = kernel_times(fn, flush, runs)
-    hits = [ms for name, ms in times.items() if kernel in name]
+def device_ms(fn, kernel, flush, runs=20, attempts=3):
+    """The device time of one call of ``fn``: of the kernel whose name
+    contains ``kernel`` or, with ``kernel=None``, of every kernel but the
+    flush's fill, with ``flush()`` before each call.  A profile that holds
+    no device activity at all (the profiler now and then returns an empty
+    trace) is taken again, up to ``attempts`` times."""
+    for _ in range(attempts):
+        times, _ = kernel_times(fn, flush, runs)
+        if times:
+            break
+    hits = [ms for name, ms in times.items()
+            if (kernel in name if kernel else "FillFunctor" not in name)]
     if not hits:
         raise AssertionError(f"the profiler saw no {kernel} kernel: "
                              f"{sorted(times)}")
@@ -275,6 +309,16 @@ def projection_views(gen, device, dtype, n, h, lq, lk, d):
     return proj(lq, 1) + proj(lk, 2)
 
 
+def tensor_core_instructions(lib):
+    """Counts of warpgroup (HGMMA) and warp (HMMA) tensor-core
+    instructions in a built library's SASS, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                          text=True, check=True).stdout
+    return {"HGMMA": len(re.findall(r"\bHGMMA\.", sass)),
+            "HMMA": len(re.findall(r"\bHMMA\.", sass))}
+
+
 def flash_phase(device, l2_flush):
     gen = torch.Generator(device=device).manual_seed(1)
     rows = []
@@ -310,11 +354,13 @@ def flash_phase(device, l2_flush):
                        flush),
             device_ms=device_ms(
                 lambda: flash_attention.flash_attention_forward(*args),
-                "flash_fwd_kernel", flush),
+                FLASH_FWD_KERNEL[dtype], flush),
             plain_ms=cuda_ms(lambda: flash_attention.attention_plain(*args),
                              flush),
             sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=scale), flush),
+            sdpa_device_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=scale), None, flush),
             bound_ms=bound, bound_by=bound_by)
         print("flash kernel:", json.dumps(row), flush=True)
         rows.append(row)
@@ -462,6 +508,7 @@ def kernel_class(name):
     """Coarse class of a CUDA kernel name for the time breakdown."""
     low = name.lower()
     for key, words in (("flash fwd", ("flash_fwd_kernel",)),
+                       ("flash fwd bf16", ("flash_fwd_sm90_kernel",)),
                        ("flash dq", ("flash_bwd_dq_kernel",)),
                        ("flash dkv", ("flash_bwd_dkv_kernel",)),
                        ("confusion", ("confusion_kernel",)),
@@ -472,7 +519,9 @@ def kernel_class(name):
                        ("conv", ("conv", "fprop", "dgrad", "wgrad", "fft",
                                  "flip_filter", "cf32",
                                  "pointwise_mult_and_sum_complex")),
-                       ("matmul", ("gemm", "cutlass", "xmma", "splitk")),
+                       # (cuBLAS's bf16 GEMMs on Hopper are nvjet_*)
+                       ("matmul", ("gemm", "cutlass", "xmma", "splitk",
+                                   "nvjet")),
                        ("layer norm", ("layer_norm",)),
                        ("upsample", ("upsample",)),
                        ("softmax", ("softmax",)),
@@ -499,15 +548,16 @@ def print_breakdown(what, fn):
         top_kernels=[[name[:90], ms] for name, ms in top])), flush=True)
 
 
-def setr_slice_phase(device):
-    model = init_model(SETR_CONFIG, device=device)
-    if model.auxiliary_head is None:
-        raise AssertionError("SETR's aux head is missing")
-    if model.backbone.depth != SETR_LAYERS:
-        raise AssertionError(f"ViT-S has {model.backbone.depth} layers")
-    randomize_(model, seed=0)
-    x, x_nchw, masks = synthetic_batch(device, SETR_BATCH, SETR_IMAGE_SIZE)
+def serve_setr(model, amp):
+    """SETR serving under the float32 or (``amp``) the bf16 policy: 8
+    forwards through ``inference_model``, ``model.inference`` and
+    ``SegEvaluator``, with exactly 12 launches per forward of the policy's
+    flash forward kernel and none of the other one.  The batch, the
+    latency, the launches and the metrics."""
+    x, x_nchw, masks = synthetic_batch(next(model.parameters()).device,
+                                       SETR_BATCH, SETR_IMAGE_SIZE)
     shape = (SETR_BATCH, SETR_IMAGE_SIZE, SETR_IMAGE_SIZE)
+    dtype = torch.bfloat16 if amp else torch.float32
     forwards = 0
 
     def serve():
@@ -517,30 +567,74 @@ def setr_slice_phase(device):
 
     reset_counts()
     evaluator = new_evaluator()
-    with torch.no_grad():
-        check_class_map(serve(), shape, "setr whole")
+    with torch.no_grad(), policy_scope("bf16" if amp else "fp32"):
+        check_class_map(serve(), shape, f"setr whole, {dtype}")
         latency = timed_batches(serve)
         forwards += 1
         probs = model.inference(x_nchw)
-        if not bool(torch.isfinite(probs).all()):
-            raise AssertionError("setr: non-finite output")
+        if probs.dtype != dtype or not bool(torch.isfinite(probs).all()):
+            raise AssertionError(f"setr: {probs.dtype} output, or not "
+                                 f"finite")
         evaluator.process(0, {"whole": probs}, {"ori_gt": masks})
     torch.cuda.synchronize()
-    launches = dict(flash=flash_attention.launches["forward"],
-                    confusion=confusion.launches["logits"])
+    flash, other = (flash_attention.launches[k] for k in
+                    (("forward_bf16", "forward") if amp
+                     else ("forward", "forward_bf16")))
+    launches = dict(flash=flash, confusion=confusion.launches["logits"])
     metrics = evaluator.compute_metrics()
     check_metrics(metrics)
-    if launches["flash"] != SETR_LAYERS * forwards:
-        raise AssertionError(f"{launches['flash']} flash launches for "
-                             f"{forwards} forwards of {SETR_LAYERS} layers")
+    if flash != SETR_LAYERS * forwards or other != 0:
+        raise AssertionError(f"{flash} flash launches ({other} of the other "
+                             f"forward kernel) for {forwards} forwards of "
+                             f"{SETR_LAYERS} layers, {dtype}")
     if launches["confusion"] == 0:
         raise AssertionError("the evaluator never launched the kernel")
-    print("setr slice: " + json.dumps(dict(
-        batch=list(x_nchw.shape), ms_per_batch=latency, forwards=forwards,
-        launches=launches, metrics=summarize(metrics))), flush=True)
+    return x_nchw, dict(batch=list(x_nchw.shape), ms_per_batch=latency,
+                        forwards=forwards, launches=launches,
+                        metrics=summarize(metrics))
 
+
+def setr_slice_phase(device):
+    model = init_model(SETR_CONFIG, device=device)
+    if model.auxiliary_head is None:
+        raise AssertionError("SETR's aux head is missing")
+    if model.backbone.depth != SETR_LAYERS:
+        raise AssertionError(f"ViT-S has {model.backbone.depth} layers")
+    randomize_(model, seed=0)
+    x_nchw, row = serve_setr(model, amp=False)
+    print("setr slice: " + json.dumps(row), flush=True)
     print_breakdown("setr", lambda: model.inference(x_nchw))
-    return model, x_nchw, launches
+    return model, x_nchw, row["launches"]
+
+
+def setr_amp_slice_phase(model):
+    """SETR serving under the schedule's bf16 policy (``serve_setr``),
+    then its logits against the same bf16 forward with plain attention on
+    the card, and the share of pixels whose class matches the float32
+    forward."""
+    x_nchw, row = serve_setr(model, amp=True)
+    plain = functools.partial(vit.multihead_attention, force="plain")
+    with torch.no_grad():
+        fp32 = model.encode_decode(x_nchw).float()
+        with policy_scope("bf16"):
+            amp = model.encode_decode(x_nchw).float()
+            with mock.patch.object(vit, "multihead_attention", plain):
+                ref = model.encode_decode(x_nchw).float()
+    scale = float(ref.abs().max())
+    err = float((amp - ref).abs().max())
+    agree = float((amp.argmax(1) == ref.argmax(1)).float().mean())
+    if err > AMP_LOGIT_SHARE * scale or agree < AMP_ARGMAX_AGREE:
+        raise AssertionError(f"amp logits vs plain attention: max abs error "
+                             f"{err} of max |logit| {scale}, argmax agreement "
+                             f"{agree}")
+    row.update(vs_plain_attention=dict(max_abs_err=err, max_abs_logit=scale,
+                                       argmax_agreement=agree),
+               argmax_agreement_with_float32=float(
+                   (amp.argmax(1) == fp32.argmax(1)).float().mean()))
+    print("setr amp slice: " + json.dumps(row), flush=True)
+    with policy_scope("bf16"):
+        print_breakdown("setr amp", lambda: model.inference(x_nchw))
+    return row["launches"]
 
 
 def cpu_agreement_phase(model, x_nchw, h, w, what):
@@ -632,14 +726,18 @@ def flash_backward_phase(device, l2_flush):
     return rows
 
 
-def flash_counts():
+def flash_counts(amp=False):
+    """Launches of the forward kernel of the policy's dtype and of the two
+    backward kernels."""
     return {k: flash_attention.launches[k]
-            for k in ("forward", "backward_dq", "backward_dkv")}
+            for k in ("forward_bf16" if amp else "forward", "backward_dq",
+                      "backward_dkv")}
 
 
 def schedule_cfg():
+    """The kvasir schedule's optimizer, LR schedule and ``amp`` flag."""
     schedule = load_python_config(SCHEDULE)
-    return schedule["optimizer"], schedule["lr_config"]
+    return schedule["optimizer"], schedule["lr_config"], schedule["amp"]
 
 
 def snapshot(model):
@@ -647,14 +745,17 @@ def snapshot(model):
             list(model.named_parameters()) + list(model.named_buffers())}
 
 
-def setr_train_phase(device):
+def setr_train_phase(device, amp=False):
+    """TRAIN_STEPS steps in float32, or under the bf16 policy with
+    ``amp``."""
+    policy = "bf16" if amp else "fp32"
     model = init_model(SETR_CONFIG, device=device)
     if model.auxiliary_head is None:
         raise AssertionError("SETR's aux head is missing")
     if model.backbone.depth != SETR_LAYERS:
         raise AssertionError(f"ViT-S has {model.backbone.depth} layers")
     randomize_(model, seed=0)
-    optimizer_cfg, lr_config = schedule_cfg()
+    optimizer_cfg, lr_config, _ = schedule_cfg()
     state = create_train_state(model, optimizer_cfg, lr_config)
     train_step = make_train_step(state.model, state.optimizer,
                                  state.scheduler)
@@ -668,16 +769,22 @@ def setr_train_phase(device):
     logs, step_ms, per_step, rates = [], [], [], []
     for _ in range(TRAIN_STEPS):
         rates.append(state.optimizer.param_groups[0]["lr"])
-        counts = flash_counts()
+        counts = flash_counts(amp)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logs.append(train_step(x, gt, generator))
+        with policy_scope(policy):
+            logs.append(train_step(x, gt, generator))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         state.step += 1
-        per_step.append({k: v - counts[k] for k, v in flash_counts().items()})
-    launches = flash_counts()
+        per_step.append({k: v - counts[k]
+                         for k, v in flash_counts(amp).items()})
+    launches = flash_counts(amp)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    other = flash_attention.launches["forward" if amp else "forward_bf16"]
+    if other:
+        raise AssertionError(f"{policy} steps launched the other forward "
+                             f"kernel {other} times")
 
     losses = [{k: float(v) for k, v in log.items()} for log in logs]
     for i, (log, counts) in enumerate(zip(losses, per_step)):
@@ -698,7 +805,7 @@ def setr_train_phase(device):
     aux_grads = [p.grad for p in model.auxiliary_head.parameters()]
     if any(g is None or not bool(g.abs().sum() > 0) for g in aux_grads):
         raise AssertionError("the aux head got no gradient")
-    print("setr train slice: " + json.dumps(dict(
+    print(f"setr train slice ({policy}): " + json.dumps(dict(
         batch=list(x.shape), steps=TRAIN_STEPS, lr=rates,
         loss=[log["loss"] for log in losses],
         decode_loss_ce=[log["decode.loss_ce"] for log in losses],
@@ -706,7 +813,9 @@ def setr_train_phase(device):
         decode_acc_seg=[log["decode.acc_seg"] for log in losses],
         ms_per_step=statistics.median(step_ms[1:]), step_ms=step_ms,
         peak_memory_gb=peak_gb, launches=launches)), flush=True)
-    print_breakdown("setr train step", lambda: train_step(x, gt, generator))
+    with policy_scope(policy):
+        print_breakdown(f"setr train step ({policy})",
+                        lambda: train_step(x, gt, generator))
     return launches
 
 
@@ -727,7 +836,7 @@ def agreement_inputs():
 def one_train_step(model, x, gt, device):
     """One ``make_train_step`` step of ``model`` (already on ``device``)
     with the kvasir schedule; the loss."""
-    optimizer_cfg, lr_config = schedule_cfg()
+    optimizer_cfg, lr_config, _ = schedule_cfg()
     state = create_train_state(model, optimizer_cfg, lr_config)
     step = make_train_step(state.model, state.optimizer, state.scheduler)
     dtype = next(model.parameters()).dtype
@@ -814,12 +923,18 @@ def main():
 
     t0 = time.perf_counter()
     builders = (confusion.build_library, flash_attention.build_library,
+                flash_attention.build_sm90_library,
                 flash_attention.build_backward_library)
     with ThreadPoolExecutor(len(builders)) as pool:  # nvcc runs outside the GIL
-        for build in [pool.submit(b) for b in builders]:
-            build.result()
-    print(f"build: confusion, flash-attention forward and backward kernels "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        libs = [build.result() for build in [pool.submit(b)
+                                             for b in builders]]
+    print(f"build: confusion, flash-attention forward (float32, bf16) and "
+          f"backward kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    mma = tensor_core_instructions(libs[2])
+    print("bf16 forward kernel SASS: " + json.dumps(mma), flush=True)
+    if not any(mma.values()):
+        raise AssertionError("the bf16 forward kernel has no tensor-core "
+                             "instruction")
 
     l2_flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
     rows = kernel_phase(device, l2_flush)
@@ -831,11 +946,16 @@ def main():
     del model, x_nchw
     setr, setr_x, setr_launches = setr_slice_phase(device)
     cpu_agreement_phase(setr, setr_x, 320, 320, "setr")
+    if not schedule_cfg()[2]:
+        raise AssertionError("the kvasir schedule no longer sets amp")
+    amp_launches = setr_amp_slice_phase(setr)
     del setr, setr_x
     train_launches = setr_train_phase(device)
     setr_train_agreement_phase(device)
+    amp_train_launches = setr_train_phase(device, amp=True)
 
     flagship, setr_row, bwd_row = rows[0], flash_rows[0], bwd_rows[0]
+    setr_bf16_row = flash_rows[1]
     bwd_f32 = [r for r in bwd_rows if r["dtype"] == "float32"]
     print(json.dumps({"kernels": [{
         "name": "confusion_histograms",
@@ -868,6 +988,26 @@ def main():
         "bound_by": setr_row["bound_by"],
         "library_ms": setr_row["sdpa_ms"],
         "sdpa_ms": setr_row["sdpa_ms"],
+    }, {
+        "name": "flash_attention_forward_bf16",
+        "route": "cuda",
+        "source": "image_segmentation_lab_tpu_torch/csrc/"
+                  "flash_attention_sm90.cu",
+        "replaces": "image_segmentation_lab_tpu/ops/pallas/"
+                    "flash_attention.py:61",
+        # the amp serving phase and the amp train steps
+        "launches": amp_launches["flash"]
+                    + amp_train_launches["forward_bf16"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows
+                           if r["dtype"] == "bfloat16"),
+        "ms": setr_bf16_row["ms"],
+        "device_ms": setr_bf16_row["device_ms"],
+        "plain_ms": setr_bf16_row["plain_ms"],
+        "bound_ms": setr_bf16_row["bound_ms"],
+        "bound_by": setr_bf16_row["bound_by"],
+        "library_ms": setr_bf16_row["sdpa_ms"],
+        "library_device_ms": setr_bf16_row["sdpa_device_ms"],
+        "sass": mma,
     }] + [{
         "name": f"flash_attention_backward_{part}",
         "route": "cuda",
@@ -875,7 +1015,9 @@ def main():
                   "flash_attention_bwd.cu",
         "replaces": f"image_segmentation_lab_tpu/ops/pallas/"
                     f"flash_attention.py:{line}",
-        "launches": train_launches[f"backward_{part}"],
+        # float32 and bf16 (amp) train steps
+        "launches": train_launches[f"backward_{part}"]
+                    + amp_train_launches[f"backward_{part}"],
         "max_abs_err": max(max(r["max_abs_err"][g] for g in grads)
                            for r in bwd_f32),
         "ms": bwd_row[f"{part}_ms"],

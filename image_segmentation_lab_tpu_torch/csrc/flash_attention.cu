@@ -1,6 +1,6 @@
-// Flash-attention forward, CUDA C++ for sm_90a.
+// Flash-attention forward in float32, CUDA C++ for sm_90a.
 //
-// Replaces the Pallas TPU kernel
+// Replaces, for float32 inputs, the Pallas TPU kernel
 // image_segmentation_lab_tpu/ops/pallas/flash_attention.py::_fwd_kernel
 // (called through _flash_forward).  It computes, per batch n and head h,
 //   o   = softmax(q k^T * scale) v
@@ -30,12 +30,11 @@
 //     warp shuffles;
 //   * P goes through shared memory for the PV product, where each thread
 //     owns its 4 rows and D/8 contiguous value columns;
-//   * bf16 inputs are widened to float32 in shared memory (no tensor cores:
-//     wgmma and TMA are for a later, faster version).
+//   * bf16 inputs go to the tensor-core kernel of flash_attention_sm90.cu;
+//     with TF32 off, float32 has no exact tensor-core route.
 // The score tile never reaches device memory: the einsum path writes and
 // reads N*H*Lq*Lk float32 scores per call.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,17 +51,10 @@ constexpr int kPStride = kBlockN + 8;  // P row stride: conflict-free stores
 constexpr float kNegInf = -1e30f;      // finite, as in the TPU kernel
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
 template <>
 __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 struct Strides {
   int64_t n, l, h;  // element strides of batch, position and head
@@ -292,15 +284,6 @@ int flash_attention_forward_f32(const void* q, const void* k, const void* v,
                                 float scale, void* stream) {
   return dispatch<float>(q, k, v, o, lse, n, heads, lq, lk, d, strides, scale,
                          stream);
-}
-
-int flash_attention_forward_bf16(const void* q, const void* k, const void* v,
-                                 void* o, float* lse, int n, int heads,
-                                 int lq, int lk, int d,
-                                 const int64_t* strides, float scale,
-                                 void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, lse, n, heads, lq, lk, d,
-                                 strides, scale, stream);
 }
 
 const char* flash_attention_error_string(int err) {

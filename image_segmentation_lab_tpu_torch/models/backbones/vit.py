@@ -64,10 +64,13 @@ class MultiheadAttention(nn.Module):
         q, k, v = (t.unflatten(-1, (h, d))
                    for t in self.qkv(x).split(C, dim=-1))
         if self.attn_drop.p > 0.0 and self.training:
-            # probability dropout needs the materialised scores
-            scores = torch.einsum("nlhd,nshd->nhls", q.float(), k.float())
-            attn = self.attn_drop(torch.softmax(scores * scale, dim=-1))
-            out = torch.einsum("nhls,nshd->nlhd", attn.to(v.dtype), v)
+            # probability dropout needs the materialised scores (float32,
+            # also under autocast)
+            with torch.autocast(x.device.type, enabled=False):
+                scores = torch.einsum("nlhd,nshd->nhls", q.float(),
+                                      k.float())
+                attn = self.attn_drop(torch.softmax(scores * scale, dim=-1))
+                out = torch.einsum("nhls,nshd->nlhd", attn.to(v.dtype), v)
         else:
             out = multihead_attention(q, k, v, scale)
         return self.proj_drop(self.proj(out.reshape(N, L, C)))

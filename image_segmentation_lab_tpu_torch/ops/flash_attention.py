@@ -18,11 +18,13 @@ saved lse.
 
 For CPU tensors each wrapper computes the plain PyTorch version
 (``attention_plain``, ``attention_backward_plain``); for CUDA tensors it
-launches its kernel (``csrc/flash_attention.cu`` forward,
-``csrc/flash_attention_bwd.cu`` backward, built at first use by
-``ops/nvcc_build.py``) or raises.  The kernels read q, k, v and dO through
-their strides (the head dim must be contiguous), so the slices of a fused
-qkv projection need no copy.
+launches its kernel or raises.  The forward has two: float32 runs on the
+CUDA cores (``csrc/flash_attention.cu``), bfloat16 on the tensor cores
+(``csrc/flash_attention_sm90.cu``: wgmma, whose rows must start on 16
+bytes); the backward is ``csrc/flash_attention_bwd.cu``.  Each is built at
+first use by ``ops/nvcc_build.py`` and counts its own launches.  The
+kernels read q, k, v and dO through their strides (the head dim must be
+contiguous), so the slices of a fused qkv projection need no copy.
 """
 
 from __future__ import annotations
@@ -38,28 +40,46 @@ SUPPORTED_HEAD_DIMS = (32, 48, 64)
 _MAX_GRID_YZ = 65535  # heads and batch are the kernels' grid y and z
 
 # launches, counted where each kernel is launched and nowhere else
-launches = {"forward": 0, "backward_dq": 0, "backward_dkv": 0}
+launches = {"forward": 0, "forward_bf16": 0, "backward_dq": 0,
+            "backward_dkv": 0}
 _lib = None
+_sm90_lib = None
 _bwd_lib = None
 
 
-def build_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the forward kernel."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = load_library("flash_attention.cu")
+def _load_forward(source, entry, error_string):
+    lib = load_library(source)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name in ("flash_attention_forward_f32",
-                 "flash_attention_forward_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
-                       ctypes.c_float, ptr]
-        fn.restype = i32
-    lib.flash_attention_error_string.argtypes = [i32]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    # q, k, v, o, lse, n, h, lq, lk, d, strides, scale, stream
+    fn = getattr(lib, entry)
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
+                   ctypes.c_float, ptr]
+    fn.restype = i32
+    getattr(lib, error_string).argtypes = [i32]
+    getattr(lib, error_string).restype = ctypes.c_char_p
     return lib
+
+
+def build_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the float32 forward
+    kernel."""
+    global _lib
+    if _lib is None:
+        _lib = _load_forward("flash_attention.cu",
+                             "flash_attention_forward_f32",
+                             "flash_attention_error_string")
+    return _lib
+
+
+def build_sm90_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the bfloat16 tensor-core
+    forward kernel."""
+    global _sm90_lib
+    if _sm90_lib is None:
+        _sm90_lib = _load_forward("flash_attention_sm90.cu",
+                                  "flash_attention_forward_sm90_bf16",
+                                  "flash_attention_sm90_error_string")
+    return _sm90_lib
 
 
 def build_backward_library() -> ctypes.CDLL:
@@ -86,26 +106,30 @@ def build_backward_library() -> ctypes.CDLL:
 # ------------------------------------------------------------ plain versions
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Einsum, float32 softmax, cast to v's dtype, einsum."""
-    scores = torch.einsum("nlhd,nshd->nhls", q.float(), k.float()) * scale
-    attn = torch.softmax(scores, dim=-1)
-    o = torch.einsum("nhls,nshd->nlhd", attn.to(v.dtype), v)
-    return o, torch.logsumexp(scores, dim=-1)
+    """Einsum, float32 softmax, cast to v's dtype, einsum; outside any
+    autocast region, which would round the float32 scores to bf16."""
+    with torch.autocast(q.device.type, enabled=False):
+        scores = torch.einsum("nlhd,nshd->nhls", q.float(), k.float()) * scale
+        attn = torch.softmax(scores, dim=-1)
+        o = torch.einsum("nhls,nshd->nlhd", attn.to(v.dtype), v)
+        return o, torch.logsumexp(scores, dim=-1)
 
 
 def attention_backward_plain(q, k, v, do, lse, delta, scale):
     """``(dq, dk, dv)`` with the TPU backward kernels' arithmetic, whole:
     P from the saved lse, products in float32, P cast to dO's dtype for
-    dV and dS to k's (q's) dtype for dQ (dK)."""
-    qf, kf, dof = q.float(), k.float(), do.float()
-    p = torch.exp(torch.einsum("nlhd,nshd->nhls", qf, kf) * scale
-                  - lse[..., None])
-    dp = torch.einsum("nlhd,nshd->nhls", dof, v.float())
-    ds = p * (dp - delta[..., None]) * scale
-    dq = torch.einsum("nhls,nshd->nlhd", ds.to(k.dtype).float(), kf)
-    dk = torch.einsum("nhls,nlhd->nshd", ds.to(q.dtype).float(), qf)
-    dv = torch.einsum("nhls,nlhd->nshd", p.to(do.dtype).float(), dof)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dV and dS to k's (q's) dtype for dQ (dK); outside any autocast
+    region."""
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, dof = q.float(), k.float(), do.float()
+        p = torch.exp(torch.einsum("nlhd,nshd->nhls", qf, kf) * scale
+                      - lse[..., None])
+        dp = torch.einsum("nlhd,nshd->nhls", dof, v.float())
+        ds = p * (dp - delta[..., None]) * scale
+        dq = torch.einsum("nhls,nshd->nlhd", ds.to(k.dtype).float(), kf)
+        dk = torch.einsum("nhls,nlhd->nshd", ds.to(q.dtype).float(), qf)
+        dv = torch.einsum("nhls,nlhd->nshd", p.to(do.dtype).float(), dof)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def backward_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -148,6 +172,17 @@ def _check_kernel_inputs(*tensors):
         raise ValueError(f"batch {n} or heads {h} above {_MAX_GRID_YZ}")
 
 
+def _check_row_alignment(*tensors):
+    """The bf16 kernel copies 16-byte chunks: every (batch, position,
+    head) row must start on 16 bytes."""
+    for t in tensors:
+        if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in (0, 1, 2)):
+            raise ValueError(
+                f"the bf16 kernel needs rows on 16 bytes: strides "
+                f"{t.stride()} (multiples of 8) from a 16-byte aligned "
+                f"pointer")
+
+
 def _strides(*tensors):
     """(batch, position, head) element strides of each tensor, flat."""
     flat = [t.stride(i) for t in tensors for i in (0, 1, 2)]
@@ -173,14 +208,19 @@ def _forward(q, k, v, scale):
     lse = torch.empty((n, h, lq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    lib = build_library()
-    fn = (lib.flash_attention_forward_f32 if q.dtype == torch.float32
-          else lib.flash_attention_forward_bf16)
-    _launch(fn, lib.flash_attention_error_string, q,
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), n, h, lq, lk, d, _strides(q, k, v),
-             float(scale)))
-    launches["forward"] += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), n, h, lq, lk, d, _strides(q, k, v), float(scale))
+    if q.dtype == torch.float32:
+        lib = build_library()
+        _launch(lib.flash_attention_forward_f32,
+                lib.flash_attention_error_string, q, args)
+        launches["forward"] += 1
+        return o, lse
+    _check_row_alignment(q, k, v)
+    lib = build_sm90_library()
+    _launch(lib.flash_attention_forward_sm90_bf16,
+            lib.flash_attention_sm90_error_string, q, args)
+    launches["forward_bf16"] += 1
     return o, lse
 
 

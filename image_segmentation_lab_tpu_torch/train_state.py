@@ -10,8 +10,11 @@ model's device), never from torch's global generator, as the JAX step
 takes its ``dropout_rng``.  The log values stay tensors on the device: the
 step makes no host synchronisation.
 
-The bf16 compute policy (the JAX ``amp=True``), the MoE aux loss and the
-eval and TTA steps are not ported yet.
+The step reads the global compute policy, as the JAX step does:
+``amp_policy(True)`` (the schedule's ``amp=True``) runs ``forward_train``
+under bfloat16 autocast over the float32 parameters, with no loss scaler,
+and the backward through the flash kernels in bfloat16.  The MoE aux loss
+and the eval and TTA steps are not ported yet.
 """
 
 from __future__ import annotations

@@ -9,6 +9,12 @@ border taps replicated, negative source coordinates left unclamped).
 
 ``Upsample`` recomputes an integer output size from ``scale_factor`` at
 call time and resizes to that size, as the JAX module does.
+
+The output keeps the input's dtype, as the JAX resize's does, also under
+the bf16 policy: CUDA autocast would run ``F.interpolate`` in float32 (the
+upsamples are on its float32 list), so resize steps out of autocast.  A
+bf16 input is interpolated with float32 arithmetic inside the kernel and
+rounded once.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import warnings
 from typing import Optional, Sequence, Tuple, Union
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -34,8 +41,9 @@ def resize(input, size: Sequence[int], mode: str = "bilinear",
                 f"satisfy (out-1) % (in-1) == 0")
     if (H, W) == size:
         return input
-    return F.interpolate(input, size=size, mode=mode,
-                         align_corners=bool(align_corners))
+    with torch.autocast(input.device.type, enabled=False):
+        return F.interpolate(input, size=size, mode=mode,
+                             align_corners=bool(align_corners))
 
 
 class Upsample(nn.Module):

@@ -18,6 +18,7 @@ import torch
 
 from image_segmentation_lab_tpu_torch.ops import (attention, confusion,
                                                   flash_attention, nvcc_build)
+from image_segmentation_lab_tpu_torch.utils.ops import resize
 
 pytestmark = pytest.mark.cuda
 
@@ -174,13 +175,80 @@ def test_multihead_attention_launches_the_kernel_unless_forced_plain(
 
 
 def test_flash_counts_its_launches(cuda, monkeypatch):
-    monkeypatch.setattr(flash_attention, "launches", {"forward": 0})
+    monkeypatch.setattr(flash_attention, "launches",
+                        {"forward": 0, "forward_bf16": 0})
     q, k, v = flash_inputs("ragged_130", cuda)
     with torch.no_grad():
         for _ in range(3):
             flash_attention.flash_attention_forward(q, k, v, 0.125)
         flash_attention.attention_plain(q, k, v, 0.125)
-    assert flash_attention.launches == {"forward": 3}
+    assert flash_attention.launches == {"forward": 3, "forward_bf16": 0}
+
+
+# (N, h, Lq, Lk, d) of the bf16 tensor-core kernel (128 query rows and 64
+# keys a tile): exact fits, SETR's ragged Lq = 1601, Lk = 65 (63 masked
+# keys in the last tile) and Lk = 1, d = 32/48/64, Lq != Lk; q, k, v are
+# strided views of a fused projection unless named contiguous
+BF16_CASES = {
+    "fit_64": (2, 2, 64, 64, 64),
+    "fit_128": (2, 3, 128, 128, 64),
+    "fit_128_contiguous": (2, 3, 128, 128, 64),
+    "setr": (8, 6, 1601, 1601, 64),
+    "masked_tail_65": (2, 3, 63, 65, 32),
+    "one_key": (2, 2, 70, 1, 64),
+    "d32": (2, 4, 200, 200, 32),
+    "d48": (1, 2, 300, 300, 48),
+    "mit": (8, 1, 25600, 400, 32),
+    "lq_ne_lk_d48": (2, 2, 100, 37, 48),
+}
+
+
+def bf16_inputs(name, device):
+    n, h, lq, lk, d = BF16_CASES[name]
+    g = torch.Generator(device="cpu").manual_seed(
+        sorted(BF16_CASES).index(name))
+    if name.endswith("contiguous"):
+        return [torch.randn(n, length, h, d, generator=g).to(
+            device=device, dtype=torch.bfloat16) for length in (lq, lk, lk)]
+
+    def proj(length, parts):
+        x = torch.randn(n, length, parts * h * d, generator=g)
+        x = x.to(device=device, dtype=torch.bfloat16)
+        return [t.unflatten(-1, (h, d)) for t in x.split(h * d, dim=-1)]
+
+    return proj(lq, 3) if lq == lk else proj(lq, 1) + proj(lk, 2)
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_tensor_core_kernel_matches_plain(cuda, name, monkeypatch):
+    """o at the bf16 tolerance, lse at float32's; one launch of the
+    tensor-core kernel and none of the float32 one."""
+    monkeypatch.setattr(flash_attention, "launches",
+                        {"forward": 0, "forward_bf16": 0})
+    q, k, v = bf16_inputs(name, cuda)
+    assert name.endswith("contiguous") or not k.is_contiguous()
+    assert_flash_matches_plain(q, k, v)
+    assert flash_attention.launches == {"forward": 0, "forward_bf16": 1}
+
+
+def test_resize_keeps_bf16_under_cuda_autocast(cuda):
+    """CUDA autocast runs the upsamples in float32; the port's resize keeps
+    its input's dtype, as the JAX resize does under the bf16 policy."""
+    x = torch.randn(2, 3, 8, 8, device=cuda).to(torch.bfloat16)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = resize(x, (16, 16), mode="bilinear", align_corners=False)
+    assert out.dtype == torch.bfloat16
+    ref = torch.nn.functional.interpolate(x.float(), size=(16, 16),
+                                          mode="bilinear")
+    torch.testing.assert_close(out.float(), ref, atol=2.0 ** -8,
+                               rtol=2.0 ** -8)
+
+
+def test_bf16_kernel_refuses_rows_off_16_bytes(cuda):
+    x = torch.zeros(1, 8, 1, 72, device=cuda, dtype=torch.bfloat16)
+    q = x[..., 4:68]  # rows start 8 bytes in
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention.flash_attention_forward(q, q, q, 0.125)
 
 
 # (N, h, Lq, Lk, d), dtype: the backward kernels at SETR's training shape,
@@ -297,11 +365,15 @@ def test_flash_without_library_raises(cuda, monkeypatch, tmp_path):
     with torch.no_grad():
         o, lse = flash_attention.flash_attention_forward(q, k, v, 0.125)
     monkeypatch.setattr(flash_attention, "_lib", None)
+    monkeypatch.setattr(flash_attention, "_sm90_lib", None)
     monkeypatch.setattr(flash_attention, "_bwd_lib", None)
     monkeypatch.setattr(nvcc_build, "_BUILD_DIR", tmp_path)
     monkeypatch.setattr(nvcc_build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc not found"):
         flash_attention.flash_attention_forward(q, k, v, 0.125)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc not found"):
+        flash_attention.flash_attention_forward(
+            *(t.to(torch.bfloat16) for t in (q, k, v)), 0.125)
     with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc not found"):
         flash_attention.flash_attention_backward(q, k, v, o, lse, do, 0.125)
