@@ -5,11 +5,14 @@ card, ``nvcc`` and ``nvidia-smi``, and imports no JAX.  Phases, each
 printing its own lines; any failure raises and the exit code is not 0:
 
 1. device: the card's name and power limit;
-2. build: compile the four kernel libraries from ``csrc/`` (confusion,
+2. build: compile the five kernel libraries from ``csrc/`` (confusion,
    flash-attention forward in float32 and in bf16, flash-attention
-   backward), one ``nvcc`` each, in parallel; count the tensor-core
-   instructions (HGMMA, HMMA) in the bf16 forward's SASS, which must not
-   be 0;
+   backward in float32 and in bf16), one ``nvcc`` each, in parallel; count
+   the tensor-core instructions (HGMMA, HMMA) in the bf16 forward's and
+   the bf16 backward's SASS, which must not be 0, and read each bf16
+   backward kernel's registers, stack, shared and local memory
+   (``cuobjdump -res-usage``): stack and local memory must be 0, so
+   nothing spills;
 3. confusion kernel: against its plain PyTorch version (exact equality) at
    the eval batches of both slices, at a Cityscapes-sized batch in float32
    and bfloat16, and at a ragged shape with ignored and out-of-range labels;
@@ -35,12 +38,15 @@ printing its own lines; any failure raises and the exit code is not 0:
    the evaluator on bf16 logits, the logits against the same bf16 forward
    with plain attention, and the share of pixels whose class matches the
    float32 forward;
-8. flash-attention backward kernels (dQ, dK/dV): against their plain
-   version at SETR ViT-S/16's training shape (float32 and bfloat16), the
-   MiT-like ``Lq != Lk`` shape, a ragged small shape and Lk = 65 (63 masked
-   keys in the last tile), with q, k, v and dO as the model passes them;
+8. flash-attention backward kernels (dQ, dK/dV; float32 on the CUDA
+   cores, bfloat16 on the tensor cores): against their plain version at
+   SETR ViT-S/16's training shape, the MiT-like ``Lq != Lk`` shape, a
+   ragged small shape and Lk = 65 (63 masked keys in the last tile), each
+   in float32 and bfloat16, and a d = 48 bf16 shape, with q, k, v and dO
+   as the model passes them; a second call must give the same bits;
    beside them the backward of ``F.scaled_dot_product_attention`` as a
-   yardstick (never on the path);
+   yardstick (never on the path) and the device time of ``backward_delta``
+   (the kernels' delta = rowsum(dO·O), plain torch);
 9. SETR train slice: full-width SETR-PUP ViT-S/16 through ``init_model``,
    ``create_train_state`` and ``make_train_step`` (SGD and StepLR of the
    kvasir schedule, drop path 0.1 from a CUDA generator) for 10 steps on
@@ -53,9 +59,12 @@ printing its own lines; any failure raises and the exit code is not 0:
    (kernels, float32) and on the CPU in float64 (plain versions, attention
    and LayerNorm without their float32 casts): loss, every gradient and
    every parameter after the update;
-11. SETR train slice under amp: phase 9's 10 steps under the bf16 policy,
-   with 12 launches of the bf16 forward kernel and of each backward kernel
-   per step.
+11. SETR train slice under amp: first one step's gradients from the
+   same weights with the kernels and with plain attention on the card, each
+   gradient tensor within 0.25 relative norm (the CPU amp test's bound);
+   then phase 9's 10 steps under the bf16 policy, with 12 launches of the
+   bf16 forward kernel and of each bf16 backward kernel per step and none
+   of the float32 ones.
 
 Kernel times: the wrapper's median of 20 calls by CUDA events and the
 kernel's own device time from ``torch.profiler`` (for SDPA's forward, of
@@ -70,6 +79,7 @@ run in float32 with TF32 off, except in the amp phases.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -126,16 +136,24 @@ FLASH_SHAPES = [  # (N, h, Lq, Lk, d), dtype
 # the device kernel behind each dtype of the forward wrapper
 FLASH_FWD_KERNEL = {torch.float32: "flash_fwd_kernel",
                     torch.bfloat16: "flash_fwd_sm90_kernel"}
+# the device kernels (dQ, dK/dV) behind each dtype of the backward wrappers
+FLASH_BWD_KERNEL = {
+    torch.float32: ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+    torch.bfloat16: ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")}
 # tests/test_flash_attention.py's tolerances against the plain version
 FLASH_TOL = {torch.float32: (2e-6, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 IGNORE = 255
 RTOL, ATOL = 1e-3, 3e-3  # the slice tolerance of tests/test_torch_port_slice
 FLASH_BWD_SHAPES = [  # (N, h, Lq, Lk, d), dtype
     ((8, 6, 1601, 1601, 64), torch.float32),   # SETR ViT-S/16 train, 640², b8
-    ((8, 6, 1601, 1601, 64), torch.bfloat16),
+    ((8, 6, 1601, 1601, 64), torch.bfloat16),  # the same under amp
     ((8, 1, 25600, 400, 32), torch.float32),   # MiT-like, Lq != Lk
+    ((8, 1, 25600, 400, 32), torch.bfloat16),
     ((3, 1, 130, 130, 64), torch.float32),     # ragged, small
+    ((3, 1, 130, 130, 64), torch.bfloat16),
     ((2, 3, 63, 65, 32), torch.float32),       # 63 masked keys in the last tile
+    ((2, 3, 63, 65, 32), torch.bfloat16),
+    ((1, 2, 300, 300, 48), torch.bfloat16),    # d = 48
 ]
 SCHEDULE = ROOT / "configs/schedule/kvasir_training_schedule.py"
 TRAIN_BATCH, TRAIN_IMAGE_SIZE, TRAIN_STEPS = 8, 640, 10
@@ -154,6 +172,10 @@ GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-6
 # policy against the JAX package: within 2**-4 of the largest |logit|, the
 # same class at 98 % of the pixels
 AMP_LOGIT_SHARE, AMP_ARGMAX_AGREE = 2.0 ** -4, 0.98
+# one amp train step's gradients with the kernels against the same step
+# with plain attention: per tensor, |g - g_plain| / |g_plain| (Frobenius)
+# at most the CPU amp test's bound
+AMP_GRAD_SHARE = 0.25
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
@@ -214,15 +236,16 @@ def kernel_times(fn, flush=None, runs=1):
 def device_ms(fn, kernel, flush, runs=20, attempts=3):
     """The device time of one call of ``fn``: of the kernel whose name
     contains ``kernel`` or, with ``kernel=None``, of every kernel but the
-    flush's fill, with ``flush()`` before each call.  A profile that holds
-    no device activity at all (the profiler now and then returns an empty
-    trace) is taken again, up to ``attempts`` times."""
+    flush's fill (of bytes), with ``flush()`` before each call.  A profile
+    that holds no device activity at all (the profiler now and then returns
+    an empty trace) is taken again, up to ``attempts`` times."""
     for _ in range(attempts):
         times, _ = kernel_times(fn, flush, runs)
         if times:
             break
     hits = [ms for name, ms in times.items()
-            if (kernel in name if kernel else "FillFunctor" not in name)]
+            if (kernel in name if kernel
+                else "FillFunctor<unsigned char>" not in name)]
     if not hits:
         raise AssertionError(f"the profiler saw no {kernel} kernel: "
                              f"{sorted(times)}")
@@ -317,6 +340,36 @@ def tensor_core_instructions(lib):
                           text=True, check=True).stdout
     return {"HGMMA": len(re.findall(r"\bHGMMA\.", sass)),
             "HMMA": len(re.findall(r"\bHMMA\.", sass))}
+
+
+def template_name(mangled):
+    """``kernel<64>`` from the mangled name of a kernel template's instance
+    at one int (the identifier before ``ILi64E``, after its length)."""
+    arg = re.search(r"ILi(\d+)E", mangled)
+    if arg is None:
+        return mangled
+    end = arg.start()
+    for size in range(end - 1, 0, -1):
+        digits = str(size)
+        if mangled[end - size - len(digits):end - size] == digits:
+            return f"{mangled[end - size:end]}<{arg[1]}>"
+    return mangled
+
+
+def resource_usage(lib):
+    """Registers, stack, static shared memory and local memory (bytes;
+    stack and local memory above 0 when registers spill) of each kernel in
+    a built library, from ``cuobjdump -res-usage``: kernel name ->
+    {"REG": n, "STACK": n, "SHARED": n, "LOCAL": n}."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-res-usage", lib._name], capture_output=True,
+                         text=True, check=True).stdout
+    usage = {}
+    for name, fields in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", out):
+        usage[template_name(name)] = {
+            key: int(val) for key, val in
+            re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", fields)}
+    return usage
 
 
 def flash_phase(device, l2_flush):
@@ -511,6 +564,8 @@ def kernel_class(name):
                        ("flash fwd bf16", ("flash_fwd_sm90_kernel",)),
                        ("flash dq", ("flash_bwd_dq_kernel",)),
                        ("flash dkv", ("flash_bwd_dkv_kernel",)),
+                       ("flash dq bf16", ("flash_bwd_dq_sm90_kernel",)),
+                       ("flash dkv bf16", ("flash_bwd_dkv_sm90_kernel",)),
                        ("confusion", ("confusion_kernel",)),
                        ("batch norm", ("batch_norm", "bn_")),
                        # cuDNN's implicit-GEMM and FFT convolutions (the
@@ -658,9 +713,10 @@ def cpu_agreement_phase(model, x_nchw, h, w, what):
 
 
 def flash_backward_phase(device, l2_flush):
-    """dQ and dK/dV kernels against the plain backward on the same inputs;
-    times of each kernel, the plain backward (dQ, dK and dV together) and
-    SDPA's backward (the three together)."""
+    """dQ and dK/dV kernels against the plain backward on the same inputs,
+    and against their own second call (same bits); times of each kernel,
+    the plain backward (dQ, dK and dV together), SDPA's backward (the three
+    together) and ``backward_delta``."""
     gen = torch.Generator(device=device).manual_seed(2)
     rows = []
     for (n, h, lq, lk, d), dtype in FLASH_BWD_SHAPES:
@@ -671,9 +727,14 @@ def flash_backward_phase(device, l2_flush):
         o, lse = flash_attention.flash_attention_forward(q, k, v, scale)
         delta = flash_attention.backward_delta(o, do)
         args = (q, k, v, do, lse, delta, scale)
-        outs = (flash_attention.flash_attention_backward_dq(*args),
-                *flash_attention.flash_attention_backward_dkv(*args))
+
+        def kernels():
+            return (flash_attention.flash_attention_backward_dq(*args),
+                    *flash_attention.flash_attention_backward_dkv(*args))
+
+        outs = kernels()
         refs = flash_attention.attention_backward_plain(*args)
+        repeat = all(torch.equal(a, b) for a, b in zip(outs, kernels()))
         torch.cuda.synchronize()
         errs, tols = {}, {}
         for name, out, ref in zip(("dq", "dk", "dv"), outs, refs):
@@ -684,7 +745,11 @@ def flash_backward_phase(device, l2_flush):
                 raise AssertionError(
                     f"flash backward kernel != plain at {(n, h, lq, lk, d)} "
                     f"{dtype}: max abs error of {name} {errs[name]}")
-        del outs, refs, o
+        if not repeat:
+            raise AssertionError(f"flash backward kernels at "
+                                 f"{(n, h, lq, lk, d)} {dtype} gave other "
+                                 f"bits on a second call")
+        del outs, refs
         flush = l2_flush.zero_
         size, work = q.element_size() * d * n * h, 2.0 * n * h * lq * lk * d
         rows_bytes = 2 * 4 * n * h * lq  # lse and delta
@@ -699,39 +764,49 @@ def flash_backward_phase(device, l2_flush):
         with torch.enable_grad():
             sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
         dot = do.transpose(1, 2)
+
+        def sdpa_backward():
+            return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        dq_kernel, dkv_kernel = FLASH_BWD_KERNEL[dtype]
         row = dict(
             shape=[n, h, lq, lk, d], dtype=str(dtype).replace("torch.", ""),
-            max_abs_err=errs, tolerance=tols,
+            max_abs_err=errs, tolerance=tols, repeats_bit_for_bit=repeat,
             dq_ms=cuda_ms(lambda: flash_attention.flash_attention_backward_dq(
                 *args), flush),
             dq_device_ms=device_ms(
                 lambda: flash_attention.flash_attention_backward_dq(*args),
-                "flash_bwd_dq_kernel", flush),
+                dq_kernel, flush),
             dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
             dkv_ms=cuda_ms(
                 lambda: flash_attention.flash_attention_backward_dkv(*args),
                 flush),
             dkv_device_ms=device_ms(
                 lambda: flash_attention.flash_attention_backward_dkv(*args),
-                "flash_bwd_dkv_kernel", flush),
+                dkv_kernel, flush),
             dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+            delta_device_ms=device_ms(
+                lambda: flash_attention.backward_delta(o, do), None, flush),
             plain_ms=cuda_ms(
                 lambda: flash_attention.attention_backward_plain(*args),
                 flush),
-            sdpa_backward_ms=cuda_ms(lambda: torch.autograd.grad(
-                sdpa_out, (qt, kt, vt), dot, retain_graph=True), flush))
+            sdpa_backward_ms=cuda_ms(sdpa_backward, flush),
+            sdpa_backward_device_ms=device_ms(sdpa_backward, None, flush))
         print("flash backward kernels:", json.dumps(row), flush=True)
         rows.append(row)
-        del q, k, v, do, qt, kt, vt, dot, sdpa_out, args, lse, delta
+        del q, k, v, do, o, qt, kt, vt, dot, sdpa_out, args, lse, delta
     return rows
 
 
+FLASH_KEYS = {False: ("forward", "backward_dq", "backward_dkv"),
+              True: ("forward_bf16", "backward_dq_bf16", "backward_dkv_bf16")}
+
+
 def flash_counts(amp=False):
-    """Launches of the forward kernel of the policy's dtype and of the two
-    backward kernels."""
-    return {k: flash_attention.launches[k]
-            for k in ("forward_bf16" if amp else "forward", "backward_dq",
-                      "backward_dkv")}
+    """Launches of the flash kernels (forward, dQ, dK/dV) of the policy's
+    dtype: float32, or bf16 with ``amp``."""
+    return {k: flash_attention.launches[k] for k in FLASH_KEYS[amp]}
 
 
 def schedule_cfg():
@@ -761,6 +836,7 @@ def setr_train_phase(device, amp=False):
                                  state.scheduler)
     _, x, masks = synthetic_batch(device, TRAIN_BATCH, TRAIN_IMAGE_SIZE)
     gt = torch.from_numpy(masks).to(device).long()
+    vs_plain = amp_attention_agreement(model, x, gt, device) if amp else None
     generator = torch.Generator(device=device).manual_seed(0)
     before = snapshot(model)
 
@@ -781,10 +857,10 @@ def setr_train_phase(device, amp=False):
                          for k, v in flash_counts(amp).items()})
     launches = flash_counts(amp)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    other = flash_attention.launches["forward" if amp else "forward_bf16"]
-    if other:
-        raise AssertionError(f"{policy} steps launched the other forward "
-                             f"kernel {other} times")
+    other = {k: flash_attention.launches[k] for k in FLASH_KEYS[not amp]}
+    if any(other.values()):
+        raise AssertionError(f"{policy} steps launched the other dtype's "
+                             f"flash kernels: {other}")
 
     losses = [{k: float(v) for k, v in log.items()} for log in logs]
     for i, (log, counts) in enumerate(zip(losses, per_step)):
@@ -812,11 +888,49 @@ def setr_train_phase(device, amp=False):
         aux_loss_ce=[log["aux.loss_ce"] for log in losses],
         decode_acc_seg=[log["decode.acc_seg"] for log in losses],
         ms_per_step=statistics.median(step_ms[1:]), step_ms=step_ms,
-        peak_memory_gb=peak_gb, launches=launches)), flush=True)
+        peak_memory_gb=peak_gb, launches=launches,
+        **({} if vs_plain is None else
+           {"vs_plain_attention": vs_plain}))), flush=True)
     with policy_scope(policy):
         print_breakdown(f"setr train step ({policy})",
                         lambda: train_step(x, gt, generator))
     return launches
+
+
+def amp_attention_agreement(model, x, gt, device):
+    """One amp train step from ``model``'s weights on copies, with the
+    flash kernels and with plain attention; each gradient tensor's
+    relative distance (Frobenius) from the plain one, at most
+    AMP_GRAD_SHARE.  The worst three."""
+    plain = functools.partial(vit.multihead_attention, force="plain")
+    grads = []
+    for patch in (contextlib.nullcontext(),
+                  mock.patch.object(vit, "multihead_attention", plain)):
+        copy_ = copy.deepcopy(model)
+        counts = flash_counts(amp=True)
+        with patch, policy_scope("bf16"):
+            one_train_step(copy_, x, gt, device)
+        torch.cuda.synchronize()
+        launched = {k: v - counts[k]
+                    for k, v in flash_counts(amp=True).items()}
+        expected = 0 if grads else SETR_LAYERS
+        if any(n != expected for n in launched.values()):
+            raise AssertionError(f"the amp step launched {launched}")
+        grads.append({name: p.grad.float() for name, p in
+                      copy_.named_parameters() if p.grad is not None})
+        del copy_
+    kernel, ref = grads
+    if kernel.keys() != ref.keys():
+        raise AssertionError("the two amp steps gave gradients to other "
+                             "parameters")
+    shares = {name: float((kernel[name] - g).norm()
+                          / g.norm().clamp_min(1e-30))
+              for name, g in ref.items()}
+    worst = sorted(shares.items(), key=lambda kv: -kv[1])[:3]
+    if worst[0][1] > AMP_GRAD_SHARE:
+        raise AssertionError(f"amp gradients with the kernels vs plain "
+                             f"attention: {worst}")
+    return dict(tensors=len(shares), worst_relative_distance=worst)
 
 
 def agreement_inputs():
@@ -924,17 +1038,29 @@ def main():
     t0 = time.perf_counter()
     builders = (confusion.build_library, flash_attention.build_library,
                 flash_attention.build_sm90_library,
-                flash_attention.build_backward_library)
+                flash_attention.build_backward_library,
+                flash_attention.build_sm90_backward_library)
     with ThreadPoolExecutor(len(builders)) as pool:  # nvcc runs outside the GIL
         libs = [build.result() for build in [pool.submit(b)
                                              for b in builders]]
-    print(f"build: confusion, flash-attention forward (float32, bf16) and "
-          f"backward kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: confusion, flash-attention forward and backward kernels "
+          f"(float32, bf16) in {time.perf_counter() - t0:.1f} s", flush=True)
     mma = tensor_core_instructions(libs[2])
     print("bf16 forward kernel SASS: " + json.dumps(mma), flush=True)
-    if not any(mma.values()):
-        raise AssertionError("the bf16 forward kernel has no tensor-core "
+    bwd_mma = tensor_core_instructions(libs[4])
+    print("bf16 backward kernels SASS: " + json.dumps(bwd_mma), flush=True)
+    if not mma["HGMMA"] or not bwd_mma["HGMMA"]:
+        raise AssertionError("a bf16 kernel library has no wgmma (HGMMA) "
                              "instruction")
+    bwd_usage = resource_usage(libs[4])
+    print("bf16 backward kernels resources: " + json.dumps(bwd_usage),
+          flush=True)
+    spills = [name for name, use in bwd_usage.items()
+              if use["LOCAL"] or use["STACK"]]
+    if len(bwd_usage) != 6 or spills:  # dQ and dK/dV at d = 32, 48, 64
+        raise AssertionError(f"bf16 backward kernels: {len(bwd_usage)} "
+                             f"found, stack or local memory (spills) in "
+                             f"{spills}")
 
     l2_flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
     rows = kernel_phase(device, l2_flush)
@@ -954,9 +1080,37 @@ def main():
     setr_train_agreement_phase(device)
     amp_train_launches = setr_train_phase(device, amp=True)
 
-    flagship, setr_row, bwd_row = rows[0], flash_rows[0], bwd_rows[0]
+    flagship, setr_row = rows[0], flash_rows[0]
     setr_bf16_row = flash_rows[1]
-    bwd_f32 = [r for r in bwd_rows if r["dtype"] == "float32"]
+
+    def backward_entries(dtype, source, train, sass):
+        """The kernels-line entries of the dQ and dK/dV kernels of one
+        dtype, from its rows (the first is SETR's) and its train phase."""
+        dtype_rows = [r for r in bwd_rows
+                      if r["dtype"] == str(dtype).replace("torch.", "")]
+        row, suffix = dtype_rows[0], ("_bf16" if dtype == torch.bfloat16
+                                      else "")
+        return [dict({
+            "name": f"flash_attention_backward_{part}{suffix}",
+            "route": "cuda",
+            "source": f"image_segmentation_lab_tpu_torch/csrc/{source}",
+            "replaces": f"image_segmentation_lab_tpu/ops/pallas/"
+                        f"flash_attention.py:{line}",
+            "launches": train[f"backward_{part}{suffix}"],
+            "max_abs_err": max(max(r["max_abs_err"][g] for g in grads)
+                               for r in dtype_rows),
+            "ms": row[f"{part}_ms"],
+            "device_ms": row[f"{part}_device_ms"],
+            # the plain version and SDPA compute dQ, dK and dV in one call
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row[f"{part}_bound_ms"],
+            "bound_by": row[f"{part}_bound_by"],
+            "library_ms": row["sdpa_backward_ms"],
+            "library_device_ms": row["sdpa_backward_device_ms"],
+            "delta_device_ms": row["delta_device_ms"],
+        }, **sass) for part, line, grads in (("dq", 156, ("dq",)),
+                                             ("dkv", 187, ("dk", "dv")))]
+
     print(json.dumps({"kernels": [{
         "name": "confusion_histograms",
         "route": "cuda",
@@ -987,7 +1141,7 @@ def main():
         "bound_ms": setr_row["bound_ms"],
         "bound_by": setr_row["bound_by"],
         "library_ms": setr_row["sdpa_ms"],
-        "sdpa_ms": setr_row["sdpa_ms"],
+        "library_device_ms": setr_row["sdpa_device_ms"],
     }, {
         "name": "flash_attention_forward_bf16",
         "route": "cuda",
@@ -1008,27 +1162,10 @@ def main():
         "library_ms": setr_bf16_row["sdpa_ms"],
         "library_device_ms": setr_bf16_row["sdpa_device_ms"],
         "sass": mma,
-    }] + [{
-        "name": f"flash_attention_backward_{part}",
-        "route": "cuda",
-        "source": "image_segmentation_lab_tpu_torch/csrc/"
-                  "flash_attention_bwd.cu",
-        "replaces": f"image_segmentation_lab_tpu/ops/pallas/"
-                    f"flash_attention.py:{line}",
-        # float32 and bf16 (amp) train steps
-        "launches": train_launches[f"backward_{part}"]
-                    + amp_train_launches[f"backward_{part}"],
-        "max_abs_err": max(max(r["max_abs_err"][g] for g in grads)
-                           for r in bwd_f32),
-        "ms": bwd_row[f"{part}_ms"],
-        "device_ms": bwd_row[f"{part}_device_ms"],
-        # the plain version and SDPA compute dQ, dK and dV in one call
-        "plain_ms": bwd_row["plain_ms"],
-        "bound_ms": bwd_row[f"{part}_bound_ms"],
-        "bound_by": bwd_row[f"{part}_bound_by"],
-        "library_ms": bwd_row["sdpa_backward_ms"],
-    } for part, line, grads in (("dq", 156, ("dq",)),
-                                ("dkv", 187, ("dk", "dv")))]}))
+    }] + backward_entries(torch.float32, "flash_attention_bwd.cu",
+                          train_launches, {})
+        + backward_entries(torch.bfloat16, "flash_attention_bwd_sm90.cu",
+                           amp_train_launches, {"sass": bwd_mma})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 // Flash-attention backward, CUDA C++ for sm_90a: dQ and dK/dV.
 //
-// Replaces the Pallas TPU kernels
+// Replaces, for float32 inputs, the Pallas TPU kernels
 // image_segmentation_lab_tpu/ops/pallas/flash_attention.py::_bwd_dq_kernel
 // and ::_bwd_dkv_kernel (called through _flash_backward).  Given q, k, v,
 // the output gradient dO, the forward's row logsumexp lse and
@@ -9,14 +9,13 @@
 //   P  = exp(q k^T * scale - lse)     float32, recomputed tile by tile
 //   dP = dO v^T                        float32
 //   dS = P * (dP - delta) * scale      float32
-//   dQ = dS k      with dS cast to k's dtype       (flash_bwd_dq_kernel)
-//   dV = P^T dO    with P cast to dO's dtype       (flash_bwd_dkv_kernel)
-//   dK = dS^T q    with dS cast to q's dtype       (flash_bwd_dkv_kernel)
-// The products accumulate in float32 and are written in the inputs' dtype,
-// as in the TPU kernels.  Keys past Lk get P = 0; query rows past Lq
-// contribute nothing (the TPU version zero-pads dO).  Two kernels, not one
-// with atomics: each output tile has one owner, so the gradients are the
-// same from run to run.
+//   dQ = dS k                                      (flash_bwd_dq_kernel)
+//   dV = P^T dO                                    (flash_bwd_dkv_kernel)
+//   dK = dS^T q                                    (flash_bwd_dkv_kernel)
+// all in float32, as in the TPU kernels at float32 inputs.  Keys past Lk
+// get P = 0; query rows past Lq contribute nothing (the TPU version
+// zero-pads dO).  Two kernels, not one with atomics: each output tile has
+// one owner, so the gradients are the same from run to run.
 //
 // Layout: q, dO (N, Lq, H, D) and k, v (N, Lk, H, D) read through their
 // strides (the head dim contiguous), so the slices of a fused qkv
@@ -39,13 +38,12 @@
 //     columns (tx + 8 j), read as float4 from padded, conflict-free shared
 //     rows; P and dS go through shared memory to the threads that own the
 //     output columns (4 rows x D/8 contiguous columns each);
-//   * bf16 inputs are widened to float32 in shared memory (no tensor
-//     cores: wgmma and TMA are for a later, faster version).
+//   * bfloat16 inputs go to the tensor-core kernels of
+//     flash_attention_bwd_sm90.cu.
 // No score or probability tensor reaches device memory.  Shared memory is
 // above 48 KB at D = 64 (88 KB for dQ, 107 KB for dK/dV), so each launch
 // first raises the kernel's dynamic shared-memory limit.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,23 +57,6 @@ constexpr int kRows = kBlock / kRowGroups;         // 4 rows per thread
 constexpr int kCols = kBlock / kColGroups;         // 8 score columns per thread
 constexpr int kPStride = kBlock + 8;  // P/dS row stride: conflict-free stores
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-// a float32 value rounded to T, as the TPU kernels' astype before a product
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
 
 struct Strides {
   int64_t n, l, h;  // element strides of batch, position and head
@@ -87,14 +68,14 @@ __host__ __device__ constexpr int smem_row() { return D + 4; }
 
 // kBlock rows from row0 of one (batch, head) slice into shared memory as
 // float32; rows past len are zero
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, int64_t ld,
-                                      int row0, int len) {
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      int64_t ld, int row0, int len) {
   constexpr int kStride = smem_row<D>();
   for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
     const int r = i / D, e = i % D;
     const int row = row0 + r;
-    dst[r * kStride + e] = row < len ? to_float(src[row * ld + e]) : 0.f;
+    dst[r * kStride + e] = row < len ? src[row * ld + e] : 0.f;
   }
 }
 
@@ -180,18 +161,19 @@ __device__ __forceinline__ void accumulate(const float* p_s, const float* x_s,
 }
 
 // this thread's rows of a contiguous (N, L, H, D) output
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void store_rows(
-    T* out, float (&acc)[kRows][D / kColGroups], int n, int head,
+    float* out, float (&acc)[kRows][D / kColGroups], int n, int head,
     int heads, int row0, int len, int ty, int tx) {
   constexpr int kDCols = D / kColGroups;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = row0 + ty + kRowGroups * i;
     if (row >= len) continue;
-    T* o_row = out + (((int64_t)n * len + row) * heads + head) * D + tx * kDCols;
+    float* o_row =
+        out + (((int64_t)n * len + row) * heads + head) * D + tx * kDCols;
 #pragma unroll
-    for (int d = 0; d < kDCols; ++d) o_row[d] = from_float<T>(acc[i][d]);
+    for (int d = 0; d < kDCols; ++d) o_row[d] = acc[i][d];
   }
 }
 
@@ -207,12 +189,14 @@ constexpr size_t dkv_smem_bytes() {
                           2 * (size_t)kBlock * kPStride + 2 * kBlock);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int heads, int lq, int lk, Strides qs, Strides ks,
                     Strides vs, Strides dos, float scale) {
   constexpr int kStride = smem_row<D>();
@@ -232,12 +216,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBlock;
   const int head = blockIdx.y;
   const int n = blockIdx.z;
-  const T* kb = k + n * ks.n + head * ks.h;
-  const T* vb = v + n * vs.n + head * vs.h;
+  const float* kb = k + n * ks.n + head * ks.h;
+  const float* vb = v + n * vs.n + head * vs.h;
 
   // Q and dO once; rows past lq are zero and never written back
-  stage<T, D>(q_s, q + n * qs.n + head * qs.h, qs.l, q0, lq);
-  stage<T, D>(do_s, dout + n * dos.n + head * dos.h, dos.l, q0, lq);
+  stage<D>(q_s, q + n * qs.n + head * qs.h, qs.l, q0, lq);
+  stage<D>(do_s, dout + n * dos.n + head * dos.h, dos.l, q0, lq);
 
   const int64_t rows = ((int64_t)n * heads + head) * lq;
   float row_lse[kRows], row_delta[kRows], acc[kRows][kDCols];
@@ -252,8 +236,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < lk; k0 += kBlock) {
     __syncthreads();  // the last tile's readers are done (and Q/dO staged)
-    stage<T, D>(k_s, kb, ks.l, k0, lk);
-    stage<T, D>(v_s, vb, vs.l, k0, lk);
+    stage<D>(k_s, kb, ks.l, k0, lk);
+    stage<D>(v_s, vb, vs.l, k0, lk);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T for rows ty + 16 i, keys tx + 8 j
@@ -268,22 +252,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = in ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
         // dS in k's dtype for the dS K product
         ds_row[kColGroups * j] =
-            round_to<T>(p * (dp[i][j] - row_delta[i]) * scale);
+            p * (dp[i][j] - row_delta[i]) * scale;
       }
     }
     __syncthreads();
     accumulate<D>(ds_s, k_s, acc, ty, tx);  // dQ += dS K
   }
-  store_rows<T, D>(dq, acc, n, head, heads, q0, lq, ty, tx);
+  store_rows<D>(dq, acc, n, head, heads, q0, lq, ty, tx);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int heads, int lq, int lk,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int heads, int lq, int lk,
                      Strides qs, Strides ks, Strides vs, Strides dos,
                      float scale) {
   constexpr int kStride = smem_row<D>();
@@ -306,13 +292,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * kBlock;
   const int head = blockIdx.y;
   const int n = blockIdx.z;
-  const T* qb = q + n * qs.n + head * qs.h;
-  const T* dob = dout + n * dos.n + head * dos.h;
+  const float* qb = q + n * qs.n + head * qs.h;
+  const float* dob = dout + n * dos.n + head * dos.h;
   const int64_t rows = ((int64_t)n * heads + head) * lq;
 
   // K and V once; key rows past lk are zero and never written back
-  stage<T, D>(k_s, k + n * ks.n + head * ks.h, ks.l, k0, lk);
-  stage<T, D>(v_s, v + n * vs.n + head * vs.h, vs.l, k0, lk);
+  stage<D>(k_s, k + n * ks.n + head * ks.h, ks.l, k0, lk);
+  stage<D>(v_s, v + n * vs.n + head * vs.h, vs.l, k0, lk);
 
   float dk_acc[kRows][kDCols], dv_acc[kRows][kDCols];
 #pragma unroll
@@ -322,8 +308,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int q0 = 0; q0 < lq; q0 += kBlock) {
     __syncthreads();  // the last tile's readers are done (and K/V staged)
-    stage<T, D>(q_s, qb, qs.l, q0, lq);
-    stage<T, D>(do_s, dob, dos.l, q0, lq);
+    stage<D>(q_s, qb, qs.l, q0, lq);
+    stage<D>(do_s, dob, dos.l, q0, lq);
     for (int i = tid; i < kBlock; i += kThreads) {
       const bool in = q0 + i < lq;
       lse_s[i] = in ? lse[rows + q0 + i] : 0.f;
@@ -342,54 +328,53 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = tx + kColGroups * j;
         const bool in = q0 + c < lq;
         const float p = in ? expf(st[i][j] * scale - lse_s[c]) : 0.f;
-        p_s[r + kColGroups * j] = round_to<T>(p);  // in dO's dtype
-        // dS in q's dtype for the dS^T Q product
-        ds_s[r + kColGroups * j] =
-            round_to<T>(p * (dpt[i][j] - delta_s[c]) * scale);
+        p_s[r + kColGroups * j] = p;
+        ds_s[r + kColGroups * j] = p * (dpt[i][j] - delta_s[c]) * scale;
       }
     }
     __syncthreads();
     accumulate<D>(p_s, do_s, dv_acc, ty, tx);   // dV += P^T dO
     accumulate<D>(ds_s, q_s, dk_acc, ty, tx);   // dK += dS^T Q
   }
-  store_rows<T, D>(dk, dk_acc, n, head, heads, k0, lk, ty, tx);
-  store_rows<T, D>(dv, dv_acc, n, head, heads, k0, lk, ty, tx);
+  store_rows<D>(dk, dk_acc, n, head, heads, k0, lk, ty, tx);
+  store_rows<D>(dv, dv_acc, n, head, heads, k0, lk, ty, tx);
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int n,
               int heads, int lq, int lk, const Strides* s, float scale,
               cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((lq + kBlock - 1) / kBlock, heads, n);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), heads, lq, lk, s[0], s[1], s[2], s[3], scale);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), heads, lq, lk, s[0], s[1], s[2], s[3],
+      scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int n, int heads, int lq, int lk, const Strides* s,
                float scale, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((lk + kBlock - 1) / kBlock, heads, n);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), heads, lq, lk, s[0], s[1],
-      s[2], s[3], scale);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), heads, lq, lk,
+      s[0], s[1], s[2], s[3], scale);
   return (int)cudaGetLastError();
 }
 
@@ -398,7 +383,6 @@ void read_strides(const int64_t* strides, Strides* s) {
     s[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
 }
 
-template <typename T>
 int dispatch_dq(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dq, int n,
                 int heads, int lq, int lk, int d, const int64_t* strides,
@@ -408,20 +392,19 @@ int dispatch_dq(const void* q, const void* k, const void* v, const void* dout,
   const cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
     case 32:
-      return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, n, heads, lq,
+      return launch_dq<32>(q, k, v, dout, lse, delta, dq, n, heads, lq,
                               lk, s, scale, st);
     case 48:
-      return launch_dq<T, 48>(q, k, v, dout, lse, delta, dq, n, heads, lq,
+      return launch_dq<48>(q, k, v, dout, lse, delta, dq, n, heads, lq,
                               lk, s, scale, st);
     case 64:
-      return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, n, heads, lq,
+      return launch_dq<64>(q, k, v, dout, lse, delta, dq, n, heads, lq,
                               lk, s, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
 int dispatch_dkv(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* delta,
                  void* dk, void* dv, int n, int heads, int lq, int lk, int d,
@@ -431,13 +414,13 @@ int dispatch_dkv(const void* q, const void* k, const void* v,
   const cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
     case 32:
-      return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, n, heads,
+      return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, n, heads,
                                lq, lk, s, scale, st);
     case 48:
-      return launch_dkv<T, 48>(q, k, v, dout, lse, delta, dk, dv, n, heads,
+      return launch_dkv<48>(q, k, v, dout, lse, delta, dk, dv, n, heads,
                                lq, lk, s, scale, st);
     case 64:
-      return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, n, heads,
+      return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, n, heads,
                                lq, lk, s, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -458,18 +441,8 @@ int flash_attention_backward_dq_f32(const void* q, const void* k,
                                     void* dq, int n, int heads, int lq,
                                     int lk, int d, const int64_t* strides,
                                     float scale, void* stream) {
-  return dispatch_dq<float>(q, k, v, dout, lse, delta, dq, n, heads, lq, lk,
+  return dispatch_dq(q, k, v, dout, lse, delta, dq, n, heads, lq, lk,
                             d, strides, scale, stream);
-}
-
-int flash_attention_backward_dq_bf16(const void* q, const void* k,
-                                     const void* v, const void* dout,
-                                     const float* lse, const float* delta,
-                                     void* dq, int n, int heads, int lq,
-                                     int lk, int d, const int64_t* strides,
-                                     float scale, void* stream) {
-  return dispatch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, n, heads,
-                                    lq, lk, d, strides, scale, stream);
 }
 
 int flash_attention_backward_dkv_f32(const void* q, const void* k,
@@ -479,20 +452,8 @@ int flash_attention_backward_dkv_f32(const void* q, const void* k,
                                      int lq, int lk, int d,
                                      const int64_t* strides, float scale,
                                      void* stream) {
-  return dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, n, heads, lq,
+  return dispatch_dkv(q, k, v, dout, lse, delta, dk, dv, n, heads, lq,
                              lk, d, strides, scale, stream);
-}
-
-int flash_attention_backward_dkv_bf16(const void* q, const void* k,
-                                      const void* v, const void* dout,
-                                      const float* lse, const float* delta,
-                                      void* dk, void* dv, int n, int heads,
-                                      int lq, int lk, int d,
-                                      const int64_t* strides, float scale,
-                                      void* stream) {
-  return dispatch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, n,
-                                     heads, lq, lk, d, strides, scale,
-                                     stream);
 }
 
 const char* flash_attention_backward_error_string(int err) {

@@ -18,11 +18,12 @@ saved lse.
 
 For CPU tensors each wrapper computes the plain PyTorch version
 (``attention_plain``, ``attention_backward_plain``); for CUDA tensors it
-launches its kernel or raises.  The forward has two: float32 runs on the
-CUDA cores (``csrc/flash_attention.cu``), bfloat16 on the tensor cores
-(``csrc/flash_attention_sm90.cu``: wgmma, whose rows must start on 16
-bytes); the backward is ``csrc/flash_attention_bwd.cu``.  Each is built at
-first use by ``ops/nvcc_build.py`` and counts its own launches.  The
+launches its kernel or raises.  Each pass has two: float32 runs on the
+CUDA cores (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``),
+bfloat16 on the tensor cores (``csrc/flash_attention_sm90.cu``,
+``csrc/flash_attention_bwd_sm90.cu``: wgmma, whose rows must start on 16
+bytes).  Each is built at first use by ``ops/nvcc_build.py`` and counts
+its own launches.  The
 kernels read q, k, v and dO through their strides (the head dim must be
 contiguous), so the slices of a fused qkv projection need no copy.
 """
@@ -41,10 +42,11 @@ _MAX_GRID_YZ = 65535  # heads and batch are the kernels' grid y and z
 
 # launches, counted where each kernel is launched and nowhere else
 launches = {"forward": 0, "forward_bf16": 0, "backward_dq": 0,
-            "backward_dkv": 0}
+            "backward_dkv": 0, "backward_dq_bf16": 0, "backward_dkv_bf16": 0}
 _lib = None
 _sm90_lib = None
 _bwd_lib = None
+_sm90_bwd_lib = None
 
 
 def _load_forward(source, entry, error_string):
@@ -82,25 +84,42 @@ def build_sm90_library() -> ctypes.CDLL:
     return _sm90_lib
 
 
-def build_backward_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the dQ and dK/dV kernels."""
-    global _bwd_lib
-    if _bwd_lib is not None:
-        return _bwd_lib
-    lib = load_library("flash_attention_bwd.cu")
+def _load_backward(source, entry, error_string):
+    lib = load_library(source)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for dtype in ("f32", "bf16"):
-        # q, k, v, dO, lse, delta, outputs..., n, h, lq, lk, d, strides,
-        # scale, stream
-        for name, outs in (("dq", 1), ("dkv", 2)):
-            fn = getattr(lib, f"flash_attention_backward_{name}_{dtype}")
-            fn.argtypes = ([ptr] * (6 + outs) + [i32] * 5
-                           + [ptr, ctypes.c_float, ptr])
-            fn.restype = i32
-    lib.flash_attention_backward_error_string.argtypes = [i32]
-    lib.flash_attention_backward_error_string.restype = ctypes.c_char_p
-    _bwd_lib = lib
+    # q, k, v, dO, lse, delta, outputs..., n, h, lq, lk, d, strides, scale,
+    # stream
+    for name, outs in (("dq", 1), ("dkv", 2)):
+        fn = getattr(lib, entry.format(name))
+        fn.argtypes = ([ptr] * (6 + outs) + [i32] * 5
+                       + [ptr, ctypes.c_float, ptr])
+        fn.restype = i32
+    getattr(lib, error_string).argtypes = [i32]
+    getattr(lib, error_string).restype = ctypes.c_char_p
     return lib
+
+
+def build_backward_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the float32 dQ and dK/dV
+    kernels."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        _bwd_lib = _load_backward("flash_attention_bwd.cu",
+                                  "flash_attention_backward_{}_f32",
+                                  "flash_attention_backward_error_string")
+    return _bwd_lib
+
+
+def build_sm90_backward_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the bfloat16 tensor-core dQ
+    and dK/dV kernels."""
+    global _sm90_bwd_lib
+    if _sm90_bwd_lib is None:
+        _sm90_bwd_lib = _load_backward(
+            "flash_attention_bwd_sm90.cu",
+            "flash_attention_backward_{}_sm90_bf16",
+            "flash_attention_backward_sm90_error_string")
+    return _sm90_bwd_lib
 
 
 # ------------------------------------------------------------ plain versions
@@ -173,7 +192,7 @@ def _check_kernel_inputs(*tensors):
 
 
 def _check_row_alignment(*tensors):
-    """The bf16 kernel copies 16-byte chunks: every (batch, position,
+    """The bf16 kernels copy 16-byte chunks: every (batch, position,
     head) row must start on 16 bytes."""
     for t in tensors:
         if t.data_ptr() % 16 or any(t.stride(i) % 8 for i in (0, 1, 2)):
@@ -278,14 +297,20 @@ def flash_attention_backward_dq(q, k, v, do, lse, delta, scale):
     dq = torch.empty((n, lq, h, d), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
-    lib = build_backward_library()
-    fn = (lib.flash_attention_backward_dq_f32 if q.dtype == torch.float32
-          else lib.flash_attention_backward_dq_bf16)
-    _launch(fn, lib.flash_attention_backward_error_string, q,
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, h, lq,
-             k.shape[1], d, _strides(q, k, v, do), float(scale)))
-    launches["backward_dq"] += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, h, lq,
+            k.shape[1], d, _strides(q, k, v, do), float(scale))
+    if q.dtype == torch.float32:
+        lib = build_backward_library()
+        _launch(lib.flash_attention_backward_dq_f32,
+                lib.flash_attention_backward_error_string, q, args)
+        launches["backward_dq"] += 1
+        return dq
+    _check_row_alignment(q, k, v, do)
+    lib = build_sm90_backward_library()
+    _launch(lib.flash_attention_backward_dq_sm90_bf16,
+            lib.flash_attention_backward_sm90_error_string, q, args)
+    launches["backward_dq_bf16"] += 1
     return dq
 
 
@@ -302,14 +327,20 @@ def flash_attention_backward_dkv(q, k, v, do, lse, delta, scale):
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
         return dk, dv
-    lib = build_backward_library()
-    fn = (lib.flash_attention_backward_dkv_f32 if q.dtype == torch.float32
-          else lib.flash_attention_backward_dkv_bf16)
-    _launch(fn, lib.flash_attention_backward_error_string, q,
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             n, h, lq, lk, d, _strides(q, k, v, do), float(scale)))
-    launches["backward_dkv"] += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            n, h, lq, lk, d, _strides(q, k, v, do), float(scale))
+    if q.dtype == torch.float32:
+        lib = build_backward_library()
+        _launch(lib.flash_attention_backward_dkv_f32,
+                lib.flash_attention_backward_error_string, q, args)
+        launches["backward_dkv"] += 1
+        return dk, dv
+    _check_row_alignment(q, k, v, do)
+    lib = build_sm90_backward_library()
+    _launch(lib.flash_attention_backward_dkv_sm90_bf16,
+            lib.flash_attention_backward_sm90_error_string, q, args)
+    launches["backward_dkv_bf16"] += 1
     return dk, dv
 
 

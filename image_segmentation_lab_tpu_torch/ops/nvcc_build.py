@@ -3,7 +3,8 @@
 Each source in ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use on a CUDA tensor,
 into ``_build/`` beside the package (git-ignored), keyed by a hash of the
-source and the flags, and loaded with ``ctypes``.  Nothing here includes
+source, every header (``*.cuh``) beside it and the flags, and loaded with
+``ctypes``.  Nothing here includes
 PyTorch's headers, so a build takes seconds, not minutes.
 """
 
@@ -36,11 +37,21 @@ def _nvcc(source: Path) -> str:
     return nvcc
 
 
+def library_digest(source: Path) -> str:
+    """Hash of what a build of ``source`` depends on: the source, every
+    ``*.cuh`` in its directory (a source may include any of them) and the
+    flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def load_library(source_name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source_name>`` (once per source hash) and load it."""
+    """Compile ``csrc/<source_name>`` (once per digest) and load it."""
     source = _CSRC / source_name
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = library_digest(source)
     target = _BUILD_DIR / f"lib{source.stem}_{digest[:16]}.so"
     if not target.is_file():
         nvcc = _nvcc(source)
@@ -48,7 +59,7 @@ def load_library(source_name: str) -> ctypes.CDLL:
         # build under a per-process name, then rename: concurrent builders
         # never load a half-written library
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                       check=True)
+        subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(source.parent), "-o",
+                        str(tmp), str(source)], check=True)
         os.replace(tmp, target)
     return ctypes.CDLL(str(target))

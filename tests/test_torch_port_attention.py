@@ -139,11 +139,21 @@ def test_backward_matches_the_jax_flash_kernel(name):
                                        err_msg=f"{what} {name_}", **F32_GRAD)
 
 
-def test_bf16_backward_matches_the_jax_flash_kernel():
-    B, L, d = 2, 96, 64
+# (B, Lq, Lk, d) of the bf16 backward: equal lengths; Lq != Lk at d = 48;
+# d = 32 with 63 of the last 64-key tile's keys masked
+BF16_BWD_SHAPES = {
+    "square_96": (2, 96, 96, 64),
+    "lq_ne_lk_d48": (2, 70, 37, 48),
+    "masked_tail_d32": (2, 63, 65, 32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_BWD_SHAPES))
+def test_bf16_backward_matches_the_jax_flash_kernel(name):
+    B, Lq, Lk, d = BF16_BWD_SHAPES[name]
     rng = np.random.RandomState(5)
     q, k, v, do = (jnp.asarray(rng.randn(B, L, d), jnp.bfloat16)
-                   for _ in range(4))
+                   for L in (Lq, Lk, Lk, Lq))
     scale = 1.0 / np.sqrt(d)
     refs = jax_grads(q, k, v, do, scale)
     tq, tk, tv, tdo = (torch.from_numpy(np.array(x.astype(jnp.float32)))
@@ -199,17 +209,19 @@ def test_cpu_runs_the_plain_version_and_counts_nothing(monkeypatch):
     the plain versions give the gradient.  Grad is switched on here: other
     test modules turn it off for the whole process when they are
     imported."""
-    counts = {"forward": 0, "backward_dq": 0, "backward_dkv": 0}
+    counts = dict.fromkeys(flash_attention.launches, 0)
     monkeypatch.setattr(flash_attention, "launches", dict(counts))
-    for builder in ("build_library", "build_backward_library"):
+    for builder in ("build_library", "build_sm90_library",
+                    "build_backward_library", "build_sm90_backward_library"):
         monkeypatch.setattr(flash_attention, builder,
                             lambda: pytest.fail("built a kernel for a CPU "
                                                 "tensor"))
-    q = torch.randn(1, 7, 2, 16, requires_grad=True)
-    with torch.enable_grad():
-        o, _ = flash_attention.flash_attention_forward(q, q, q, 0.25)
-        o.sum().backward()
-    assert q.grad is not None
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(1, 7, 2, 16, dtype=dtype, requires_grad=True)
+        with torch.enable_grad():
+            o, _ = flash_attention.flash_attention_forward(q, q, q, 0.25)
+            o.float().sum().backward()
+        assert q.grad is not None and q.grad.dtype == dtype
     assert flash_attention.launches == counts
     with pytest.raises(ValueError, match="force"):
         attention.multihead_attention(q, q, q, 0.25, force="einsum")

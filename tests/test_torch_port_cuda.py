@@ -252,27 +252,41 @@ def test_bf16_kernel_refuses_rows_off_16_bytes(cuda):
 
 
 # (N, h, Lq, Lk, d), dtype: the backward kernels at SETR's training shape,
-# d = 32/48/64, Lq != Lk, ragged, and Lk = 65 (63 masked keys in the last
-# tile); q, k, v are views of one fused projection (or q and a fused kv)
+# d = 32/48/64, Lq != Lk, ragged, Lk = 65 (63 masked keys in the last tile)
+# and Lk = 1; q, k, v are views of one fused projection (or q and a fused
+# kv) unless named contiguous
 BWD_CASES = {
     "setr_f32": ((8, 6, 1601, 1601, 64), torch.float32),
     "setr_bf16": ((8, 6, 1601, 1601, 64), torch.bfloat16),
     "mit_f32": ((8, 1, 25600, 400, 32), torch.float32),
     "ragged_130": ((3, 1, 130, 130, 64), torch.float32),
+    "ragged_130_bf16": ((3, 1, 130, 130, 64), torch.bfloat16),
     "d48_bf16": ((1, 2, 300, 300, 48), torch.bfloat16),
+    "d32_bf16": ((2, 4, 200, 200, 32), torch.bfloat16),
     "masked_tail": ((2, 3, 63, 65, 32), torch.float32),
+    "masked_tail_bf16": ((2, 3, 63, 65, 32), torch.bfloat16),
     "lq_ne_lk_d48": ((2, 2, 100, 37, 48), torch.float32),
+    "lq_ne_lk_d48_bf16": ((2, 2, 100, 37, 48), torch.bfloat16),
+    "one_key_bf16": ((2, 2, 70, 1, 64), torch.bfloat16),
+    "fit_128_contiguous_bf16": ((2, 3, 128, 128, 64), torch.bfloat16),
 }
+# the launch counter of each backward kernel, by dtype
+BWD_KEYS = {torch.float32: ("backward_dq", "backward_dkv"),
+            torch.bfloat16: ("backward_dq_bf16", "backward_dkv_bf16")}
 
 
 def bwd_tol(ref):
     """Float32: tests/test_flash_attention.py's gradient tolerance.
     Bfloat16: one rounding step of the value (2**-7 of it) plus 1e-3 of the
     tensor's largest value, so that a lost key tile or a wrong cast
-    fails."""
+    fails; the absolute part never below float32's 2e-5, which a gradient
+    that is 0 in exact arithmetic needs (with one key, dP = delta and dQ,
+    dK are float32 cancellation noise in the kernel and the reference
+    alike)."""
     if ref.dtype == torch.float32:
         return dict(atol=2e-5, rtol=1e-4)
-    return dict(atol=1e-3 * ref.float().abs().max().item(), rtol=2.0 ** -7)
+    return dict(atol=max(1e-3 * ref.float().abs().max().item(), 2e-5),
+                rtol=2.0 ** -7)
 
 
 def projection_views(name, device):
@@ -285,27 +299,75 @@ def projection_views(name, device):
         x = x.to(device=device, dtype=dtype)
         return [t.unflatten(-1, (h, d)) for t in x.split(h * d, dim=-1)]
 
-    qkv = proj(lq, 3) if lq == lk else proj(lq, 1) + proj(lk, 2)
+    if name.endswith("contiguous_bf16"):
+        qkv = [torch.randn(n, length, h, d, generator=g).to(
+            device=device, dtype=dtype) for length in (lq, lk, lk)]
+    else:
+        qkv = proj(lq, 3) if lq == lk else proj(lq, 1) + proj(lk, 2)
     do = torch.randn(n, lq, h, d, generator=g).to(device=device, dtype=dtype)
     return (*qkv, do)
 
 
-@pytest.mark.parametrize("name", sorted(BWD_CASES))
-def test_flash_backward_kernels_match_plain(cuda, name):
-    q, k, v, do = projection_views(name, cuda)
+def backward_kernels(q, k, v, do):
+    """The inputs of the dQ and dK/dV kernels after the forward kernel, and
+    their outputs (dq, dk, dv)."""
     scale = q.shape[-1] ** -0.5
     with torch.no_grad():
         o, lse = flash_attention.flash_attention_forward(q, k, v, scale)
         delta = flash_attention.backward_delta(o, do)
         args = (q, k, v, do, lse, delta, scale)
-        dq = flash_attention.flash_attention_backward_dq(*args)
-        dk, dv = flash_attention.flash_attention_backward_dkv(*args)
+        return args, (flash_attention.flash_attention_backward_dq(*args),
+                      *flash_attention.flash_attention_backward_dkv(*args))
+
+
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_flash_backward_kernels_match_plain(cuda, name, monkeypatch):
+    """Each output at its dtype's tolerance, from one launch of each
+    backward kernel of the inputs' dtype and none of the other dtype's."""
+    monkeypatch.setattr(flash_attention, "launches",
+                        dict.fromkeys(flash_attention.launches, 0))
+    q, k, v, do = projection_views(name, cuda)
+    assert name.endswith("contiguous_bf16") or not k.is_contiguous()
+    args, outs = backward_kernels(q, k, v, do)
+    with torch.no_grad():
         refs = flash_attention.attention_backward_plain(*args)
-    for out, ref, t in zip((dq, dk, dv), refs, (q, k, v)):
+    for out, ref, t in zip(outs, refs, (q, k, v)):
         assert out.dtype == t.dtype and out.is_cuda and out.is_contiguous()
         assert out.shape == t.shape
         torch.testing.assert_close(out.float(), ref.float(),
                                    **bwd_tol(ref))
+    backward = {key: n for key, n in flash_attention.launches.items()
+                if key.startswith("backward")}
+    assert backward == {key: int(key in BWD_KEYS[q.dtype])
+                        for key in backward}
+
+
+@pytest.mark.parametrize("name", ["setr_bf16", "masked_tail_bf16",
+                                  "lq_ne_lk_d48_bf16"])
+def test_bf16_backward_kernels_repeat_bit_for_bit(cuda, name):
+    """Each output row has one owner and no atomics: two calls on the same
+    inputs give the same bits."""
+    q, k, v, do = projection_views(name, cuda)
+    args, first = backward_kernels(q, k, v, do)
+    with torch.no_grad():
+        again = (flash_attention.flash_attention_backward_dq(*args),
+                 *flash_attention.flash_attention_backward_dkv(*args))
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_bf16_backward_refuses_rows_off_16_bytes(cuda):
+    q, k, v, do = projection_views("fit_128_contiguous_bf16", cuda)
+    args, _ = backward_kernels(q, k, v, do)
+    padded = torch.zeros(*do.shape[:-1], do.shape[-1] + 8, device=cuda,
+                         dtype=do.dtype)
+    padded[..., 4:-4] = do
+    off = padded[..., 4:-4]  # rows start 8 bytes in
+    bad = (q, k, v, off, *args[4:])
+    with torch.no_grad(), pytest.raises(ValueError, match="16 bytes"):
+        flash_attention.flash_attention_backward_dq(*bad)
+    with torch.no_grad(), pytest.raises(ValueError, match="16 bytes"):
+        flash_attention.flash_attention_backward_dkv(*bad)
 
 
 def test_grad_through_multihead_attention_launches_each_kernel_once(
@@ -313,8 +375,8 @@ def test_grad_through_multihead_attention_launches_each_kernel_once(
     """At SETR's qkv layout: one forward and one backward through the
     Function launch K3, K4 and K5 once each and agree with autograd
     through the plain version."""
-    counts = {"forward": 0, "backward_dq": 0, "backward_dkv": 0}
-    monkeypatch.setattr(flash_attention, "launches", dict(counts))
+    monkeypatch.setattr(flash_attention, "launches",
+                        dict.fromkeys(flash_attention.launches, 0))
     g = torch.Generator(device="cpu").manual_seed(7)
     n, lq, h, d = 2, 1601, 6, 64
     qkv = torch.randn(n, lq, 3 * h * d, generator=g).to(cuda)
@@ -328,26 +390,31 @@ def test_grad_through_multihead_attention_launches_each_kernel_once(
             out = attention.multihead_attention(q, k, v, d ** -0.5,
                                                 force=force)
             grads[force], = torch.autograd.grad(out, leaf, do)
-    assert flash_attention.launches == {"forward": 1, "backward_dq": 1,
-                                        "backward_dkv": 1}
+    assert flash_attention.launches == {
+        "forward": 1, "forward_bf16": 0, "backward_dq": 1, "backward_dkv": 1,
+        "backward_dq_bf16": 0, "backward_dkv_bf16": 0}
     torch.testing.assert_close(grads[None], grads["plain"],
                                **bwd_tol(grads["plain"]))
 
 
 def test_flash_backward_counts_its_launches(cuda, monkeypatch):
+    """float32 under its own keys, bf16 under ``*_bf16``; the plain
+    version counts nothing."""
     monkeypatch.setattr(flash_attention, "launches",
-                        {"forward": 0, "backward_dq": 0, "backward_dkv": 0})
-    q, k, v, do = projection_views("ragged_130", cuda)
-    with torch.no_grad():
-        o, lse = flash_attention.flash_attention_forward(q, k, v, 0.125)
-        for _ in range(2):
-            flash_attention.flash_attention_backward(q, k, v, o, lse, do,
+                        dict.fromkeys(flash_attention.launches, 0))
+    for name in ("ragged_130", "ragged_130_bf16"):
+        q, k, v, do = projection_views(name, cuda)
+        with torch.no_grad():
+            o, lse = flash_attention.flash_attention_forward(q, k, v, 0.125)
+            for _ in range(2):
+                flash_attention.flash_attention_backward(q, k, v, o, lse, do,
+                                                         0.125)
+            delta = flash_attention.backward_delta(o, do)
+            flash_attention.attention_backward_plain(q, k, v, do, lse, delta,
                                                      0.125)
-        delta = flash_attention.backward_delta(o, do)
-        flash_attention.attention_backward_plain(q, k, v, do, lse, delta,
-                                                 0.125)
-    assert flash_attention.launches == {"forward": 1, "backward_dq": 2,
-                                        "backward_dkv": 2}
+    assert flash_attention.launches == {
+        "forward": 1, "forward_bf16": 1, "backward_dq": 2, "backward_dkv": 2,
+        "backward_dq_bf16": 2, "backward_dkv_bf16": 2}
 
 
 def test_flash_unsupported_head_dim_raises(cuda):
@@ -367,6 +434,7 @@ def test_flash_without_library_raises(cuda, monkeypatch, tmp_path):
     monkeypatch.setattr(flash_attention, "_lib", None)
     monkeypatch.setattr(flash_attention, "_sm90_lib", None)
     monkeypatch.setattr(flash_attention, "_bwd_lib", None)
+    monkeypatch.setattr(flash_attention, "_sm90_bwd_lib", None)
     monkeypatch.setattr(nvcc_build, "_BUILD_DIR", tmp_path)
     monkeypatch.setattr(nvcc_build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -377,3 +445,7 @@ def test_flash_without_library_raises(cuda, monkeypatch, tmp_path):
             *(t.to(torch.bfloat16) for t in (q, k, v)), 0.125)
     with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc not found"):
         flash_attention.flash_attention_backward(q, k, v, o, lse, do, 0.125)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc not found"):
+        flash_attention.flash_attention_backward(
+            *(t.to(torch.bfloat16) for t in (q, k, v, o)), lse,
+            do.to(torch.bfloat16), 0.125)
