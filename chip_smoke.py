@@ -5,14 +5,15 @@ card, ``nvcc`` and ``nvidia-smi``, and imports no JAX.  Phases, each
 printing its own lines; any failure raises and the exit code is not 0:
 
 1. device: the card's name and power limit;
-2. build: compile the five kernel libraries from ``csrc/`` (confusion,
+2. build: compile the four kernel libraries from ``csrc/`` (confusion,
    flash-attention forward in float32 and in bf16, flash-attention
-   backward in float32 and in bf16), one ``nvcc`` each, in parallel; count
-   the tensor-core instructions (HGMMA, HMMA) in the bf16 forward's and
-   the bf16 backward's SASS, which must not be 0, and read each bf16
-   backward kernel's registers, stack, shared and local memory
-   (``cuobjdump -res-usage``): stack and local memory must be 0, so
-   nothing spills;
+   backward on the tensor cores in bf16 and in float32 with its split),
+   one ``nvcc`` each, in parallel; count the tensor-core instructions
+   (HGMMA, HMMA) in the bf16 forward's and the backward's SASS, which must
+   not be 0, and read each backward kernel's registers, stack, shared and
+   local memory (``cuobjdump -res-usage``): the twelve backward kernels
+   (dQ and dK/dV, bf16 and float32, d = 32/48/64) and the split must all
+   be there, with stack and local memory 0, so nothing spills;
 3. confusion kernel: against its plain PyTorch version (exact equality) at
    the eval batches of both slices, at a Cityscapes-sized batch in float32
    and bfloat16, and at a ragged shape with ignored and out-of-range labels;
@@ -38,22 +39,25 @@ printing its own lines; any failure raises and the exit code is not 0:
    the evaluator on bf16 logits, the logits against the same bf16 forward
    with plain attention, and the share of pixels whose class matches the
    float32 forward;
-8. flash-attention backward kernels (dQ, dK/dV; float32 on the CUDA
-   cores, bfloat16 on the tensor cores): against their plain version at
-   SETR ViT-S/16's training shape, the MiT-like ``Lq != Lk`` shape, a
-   ragged small shape and Lk = 65 (63 masked keys in the last tile), each
-   in float32 and bfloat16, and a d = 48 bf16 shape, with q, k, v and dO
-   as the model passes them; a second call must give the same bits;
-   beside them the backward of ``F.scaled_dot_product_attention`` as a
-   yardstick (never on the path) and the device time of ``backward_delta``
-   (the kernels' delta = rowsum(dO·O), plain torch);
+8. flash-attention backward kernels (dQ, dK/dV, on the tensor cores;
+   bfloat16 as it is, float32 split into three bf16 parts by the split
+   kernel, which must give the same bits as its plain version): against
+   their plain version at SETR ViT-S/16's training shape, the MiT-like
+   ``Lq != Lk`` shape, a ragged small shape, Lk = 65 (63 masked keys in
+   the last tile) and a d = 48 shape, each in float32 and bfloat16, with
+   q, k, v and dO as the model passes them; a second call must give the
+   same bits; beside them the backward of
+   ``F.scaled_dot_product_attention`` in the same dtype as a yardstick
+   (never on the path) and the device time of ``backward_delta`` (the
+   kernels' delta = rowsum(dO·O), plain torch);
 9. SETR train slice: full-width SETR-PUP ViT-S/16 through ``init_model``,
    ``create_train_state`` and ``make_train_step`` (SGD and StepLR of the
    kvasir schedule, drop path 0.1 from a CUDA generator) for 10 steps on
    one batch of eight synthetic 640² images; exactly 12 launches of each
-   flash kernel per step, finite and falling losses, moved parameters and
-   BN statistics, gradients in the aux head; ms per step, peak memory and
-   the device time per kernel class of one step from ``torch.profiler``;
+   flash kernel and of the split per step, finite and falling losses,
+   moved parameters and BN statistics, gradients in the aux head; ms per
+   step, peak memory and the device time per kernel class of one step
+   from ``torch.profiler``;
 10. cpu agreement (SETR train step): the full-size config without drop
    path, batch 2 at 320², one train step from the same weights on the card
    (kernels, float32) and on the CPU in float64 (plain versions, attention
@@ -72,9 +76,12 @@ every kernel it launches), with a 96 MB write between calls so the inputs
 come from device memory, not the L2 cache;
 ``bound_ms`` is the larger of bytes over 3.35 TB/s and operations over the
 card's peak for their type (67 TFLOP/s float32 without tensor cores, 989
-TFLOP/s bfloat16).  The second-to-last line is a JSON object describing
-each kernel; the last line is ``{"ok": true, "device": {...}}``.  Models
-run in float32 with TF32 off, except in the amp phases.
+TFLOP/s bfloat16); the float32 backward kernels do six bf16 products per
+float32 product, so their bound counts six times the bf16 operations at
+989 TFLOP/s, and the rows also give float32's operations at 67 TFLOP/s.
+The second-to-last line is a JSON object describing each kernel; the last
+line is ``{"ok": true, "device": {...}}``.  Models run in float32 with
+TF32 off, except in the amp phases.
 """
 
 from __future__ import annotations
@@ -138,8 +145,12 @@ FLASH_FWD_KERNEL = {torch.float32: "flash_fwd_kernel",
                     torch.bfloat16: "flash_fwd_sm90_kernel"}
 # the device kernels (dQ, dK/dV) behind each dtype of the backward wrappers
 FLASH_BWD_KERNEL = {
-    torch.float32: ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+    torch.float32: ("flash_bwd_dq_bf16x3_kernel",
+                    "flash_bwd_dkv_bf16x3_kernel"),
     torch.bfloat16: ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")}
+# bf16 products per float32 product in the float32 backward kernels (the
+# parts i + j <= 2 of three-part operands)
+SPLIT_PRODUCTS = 6
 # tests/test_flash_attention.py's tolerances against the plain version
 FLASH_TOL = {torch.float32: (2e-6, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 IGNORE = 255
@@ -153,7 +164,8 @@ FLASH_BWD_SHAPES = [  # (N, h, Lq, Lk, d), dtype
     ((3, 1, 130, 130, 64), torch.bfloat16),
     ((2, 3, 63, 65, 32), torch.float32),       # 63 masked keys in the last tile
     ((2, 3, 63, 65, 32), torch.bfloat16),
-    ((1, 2, 300, 300, 48), torch.bfloat16),    # d = 48
+    ((1, 2, 300, 300, 48), torch.float32),     # d = 48
+    ((1, 2, 300, 300, 48), torch.bfloat16),
 ]
 SCHEDULE = ROOT / "configs/schedule/kvasir_training_schedule.py"
 TRAIN_BATCH, TRAIN_IMAGE_SIZE, TRAIN_STEPS = 8, 640, 10
@@ -342,18 +354,18 @@ def tensor_core_instructions(lib):
             "HMMA": len(re.findall(r"\bHMMA\.", sass))}
 
 
-def template_name(mangled):
-    """``kernel<64>`` from the mangled name of a kernel template's instance
-    at one int (the identifier before ``ILi64E``, after its length)."""
-    arg = re.search(r"ILi(\d+)E", mangled)
-    if arg is None:
-        return mangled
-    end = arg.start()
-    for size in range(end - 1, 0, -1):
-        digits = str(size)
-        if mangled[end - size - len(digits):end - size] == digits:
-            return f"{mangled[end - size:end]}<{arg[1]}>"
-    return mangled
+def kernel_name(mangled):
+    """``kernel<64>`` (a kernel template's instance at one int) or
+    ``kernel`` from a mangled name ``_Z[N]<len><scope>...<len><name>``
+    with ``ILi64E`` after the name of a template."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while (size := re.match(r"\d+", mangled[pos:])) is not None:
+        pos += len(size[0])
+        name = mangled[pos:pos + int(size[0])]
+        pos += int(size[0])
+    arg = re.match(r"ILi(\d+)E", mangled[pos:])
+    return f"{name}<{arg[1]}>" if arg else name
 
 
 def resource_usage(lib):
@@ -366,7 +378,7 @@ def resource_usage(lib):
                          text=True, check=True).stdout
     usage = {}
     for name, fields in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", out):
-        usage[template_name(name)] = {
+        usage[kernel_name(name)] = {
             key: int(val) for key, val in
             re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", fields)}
     return usage
@@ -562,8 +574,9 @@ def kernel_class(name):
     low = name.lower()
     for key, words in (("flash fwd", ("flash_fwd_kernel",)),
                        ("flash fwd bf16", ("flash_fwd_sm90_kernel",)),
-                       ("flash dq", ("flash_bwd_dq_kernel",)),
-                       ("flash dkv", ("flash_bwd_dkv_kernel",)),
+                       ("flash dq", ("flash_bwd_dq_bf16x3_kernel",)),
+                       ("flash dkv", ("flash_bwd_dkv_bf16x3_kernel",)),
+                       ("flash split", ("split_bf16x3_kernel",)),
                        ("flash dq bf16", ("flash_bwd_dq_sm90_kernel",)),
                        ("flash dkv bf16", ("flash_bwd_dkv_sm90_kernel",)),
                        ("confusion", ("confusion_kernel",)),
@@ -714,7 +727,8 @@ def cpu_agreement_phase(model, x_nchw, h, w, what):
 
 def flash_backward_phase(device, l2_flush):
     """dQ and dK/dV kernels against the plain backward on the same inputs,
-    and against their own second call (same bits); times of each kernel,
+    and against their own second call (same bits); in float32 the split
+    against its plain version (same bits); times of each kernel, the split,
     the plain backward (dQ, dK and dV together), SDPA's backward (the three
     together) and ``backward_delta``."""
     gen = torch.Generator(device=device).manual_seed(2)
@@ -727,14 +741,23 @@ def flash_backward_phase(device, l2_flush):
         o, lse = flash_attention.flash_attention_forward(q, k, v, scale)
         delta = flash_attention.backward_delta(o, do)
         args = (q, k, v, do, lse, delta, scale)
+        split = dtype == torch.float32
+        # the split planes, as flash_attention_backward hands them to both
+        # kernels (bf16 takes its inputs as they are)
+        planes = flash_attention.split_bf16x3(q, k, v, do) if split else None
 
         def kernels():
-            return (flash_attention.flash_attention_backward_dq(*args),
-                    *flash_attention.flash_attention_backward_dkv(*args))
+            return (flash_attention.flash_attention_backward_dq(*args,
+                                                                planes),
+                    *flash_attention.flash_attention_backward_dkv(*args,
+                                                                  planes))
 
         outs = kernels()
         refs = flash_attention.attention_backward_plain(*args)
         repeat = all(torch.equal(a, b) for a, b in zip(outs, kernels()))
+        split_exact = not split or all(
+            torch.equal(got, flash_attention.split_bf16x3_plain(t))
+            for got, t in zip(planes, (q, k, v, do)))
         torch.cuda.synchronize()
         errs, tols = {}, {}
         for name, out, ref in zip(("dq", "dk", "dv"), outs, refs):
@@ -749,16 +772,30 @@ def flash_backward_phase(device, l2_flush):
             raise AssertionError(f"flash backward kernels at "
                                  f"{(n, h, lq, lk, d)} {dtype} gave other "
                                  f"bits on a second call")
+        if not split_exact:
+            raise AssertionError(f"split kernel != plain at "
+                                 f"{(n, h, lq, lk, d)}")
         del outs, refs
         flush = l2_flush.zero_
         size, work = q.element_size() * d * n * h, 2.0 * n * h * lq * lk * d
         rows_bytes = 2 * 4 * n * h * lq  # lse and delta
-        # dQ: reads q, k, v, dO, lse, delta, writes dQ; three products
-        dq_bound = bound_ms(size * (3 * lq + 2 * lk) + rows_bytes,
-                            3 * work, PEAK_FLOPS[dtype])
-        # dK/dV: reads q, k, v, dO, lse, delta, writes dK, dV; four products
-        dkv_bound = bound_ms(size * (2 * lq + 4 * lk) + rows_bytes,
-                             4 * work, PEAK_FLOPS[dtype])
+        # dQ: reads q, k, v, dO, lse, delta, writes dQ; three products.
+        # dK/dV: reads q, k, v, dO, lse, delta, writes dK, dV; four
+        # products.  Float32 takes six bf16 products per product on the
+        # tensor cores (the route taken: the bound), where the CUDA cores
+        # would do the float32 products at 67 TFLOP/s
+        bounds = {}
+        for part, n_bytes, products in (
+                ("dq", size * (3 * lq + 2 * lk) + rows_bytes, 3),
+                ("dkv", size * (2 * lq + 4 * lk) + rows_bytes, 4)):
+            if split:
+                bounds[part] = bound_ms(n_bytes, SPLIT_PRODUCTS * products
+                                        * work, PEAK_FLOPS[torch.bfloat16])
+                bounds[f"{part}_cuda_cores"] = bound_ms(
+                    n_bytes, products * work, PEAK_FLOPS[torch.float32])
+            else:
+                bounds[part] = bound_ms(n_bytes, products * work,
+                                        PEAK_FLOPS[dtype])
         qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
                       for t in (q, k, v))
         with torch.enable_grad():
@@ -769,23 +806,23 @@ def flash_backward_phase(device, l2_flush):
             return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
                                        retain_graph=True)
 
+        def dq_call():
+            return flash_attention.flash_attention_backward_dq(*args, planes)
+
+        def dkv_call():
+            return flash_attention.flash_attention_backward_dkv(*args,
+                                                                planes)
+
         dq_kernel, dkv_kernel = FLASH_BWD_KERNEL[dtype]
         row = dict(
             shape=[n, h, lq, lk, d], dtype=str(dtype).replace("torch.", ""),
             max_abs_err=errs, tolerance=tols, repeats_bit_for_bit=repeat,
-            dq_ms=cuda_ms(lambda: flash_attention.flash_attention_backward_dq(
-                *args), flush),
-            dq_device_ms=device_ms(
-                lambda: flash_attention.flash_attention_backward_dq(*args),
-                dq_kernel, flush),
-            dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
-            dkv_ms=cuda_ms(
-                lambda: flash_attention.flash_attention_backward_dkv(*args),
-                flush),
-            dkv_device_ms=device_ms(
-                lambda: flash_attention.flash_attention_backward_dkv(*args),
-                dkv_kernel, flush),
-            dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+            dq_ms=cuda_ms(dq_call, flush),
+            dq_device_ms=device_ms(dq_call, dq_kernel, flush),
+            dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
+            dkv_ms=cuda_ms(dkv_call, flush),
+            dkv_device_ms=device_ms(dkv_call, dkv_kernel, flush),
+            dkv_bound_ms=bounds["dkv"][0], dkv_bound_by=bounds["dkv"][1],
             delta_device_ms=device_ms(
                 lambda: flash_attention.backward_delta(o, do), None, flush),
             plain_ms=cuda_ms(
@@ -793,19 +830,46 @@ def flash_backward_phase(device, l2_flush):
                 flush),
             sdpa_backward_ms=cuda_ms(sdpa_backward, flush),
             sdpa_backward_device_ms=device_ms(sdpa_backward, None, flush))
+        if split:
+            def split_call():
+                return flash_attention.split_bf16x3(q, k, v, do)
+
+            def split_plain():
+                return [flash_attention.split_bf16x3_plain(t)
+                        for t in (q, k, v, do)]
+
+            # reads q, k, v and dO once, writes three bf16 parts of each
+            n_split = (4 + 3 * 2) * (q.numel() + k.numel() + v.numel()
+                                     + do.numel())
+            split_bound = bound_ms(n_split, 0, PEAK_FLOPS[torch.float32])
+            row.update(
+                split_exact=split_exact, split_ms=cuda_ms(split_call, flush),
+                split_device_ms=device_ms(split_call, "split_bf16x3_kernel",
+                                          flush),
+                split_plain_ms=cuda_ms(split_plain, flush),
+                split_bound_ms=split_bound[0],
+                split_bound_by=split_bound[1],
+                dq_cuda_core_bound_ms=bounds["dq_cuda_cores"][0],
+                dkv_cuda_core_bound_ms=bounds["dkv_cuda_cores"][0])
+        row["backward_device_ms"] = (row["dq_device_ms"]
+                                     + row["dkv_device_ms"]
+                                     + row.get("split_device_ms", 0.0)
+                                     + row["delta_device_ms"])
         print("flash backward kernels:", json.dumps(row), flush=True)
         rows.append(row)
         del q, k, v, do, o, qt, kt, vt, dot, sdpa_out, args, lse, delta
+        del planes
     return rows
 
 
-FLASH_KEYS = {False: ("forward", "backward_dq", "backward_dkv"),
+FLASH_KEYS = {False: ("forward", "backward_dq", "backward_dkv",
+                      "split_bf16x3"),
               True: ("forward_bf16", "backward_dq_bf16", "backward_dkv_bf16")}
 
 
 def flash_counts(amp=False):
-    """Launches of the flash kernels (forward, dQ, dK/dV) of the policy's
-    dtype: float32, or bf16 with ``amp``."""
+    """Launches of the flash kernels (forward, dQ, dK/dV and, in float32,
+    the split) of the policy's dtype: float32, or bf16 with ``amp``."""
     return {k: flash_attention.launches[k] for k in FLASH_KEYS[amp]}
 
 
@@ -1038,29 +1102,33 @@ def main():
     t0 = time.perf_counter()
     builders = (confusion.build_library, flash_attention.build_library,
                 flash_attention.build_sm90_library,
-                flash_attention.build_backward_library,
                 flash_attention.build_sm90_backward_library)
     with ThreadPoolExecutor(len(builders)) as pool:  # nvcc runs outside the GIL
         libs = [build.result() for build in [pool.submit(b)
                                              for b in builders]]
-    print(f"build: confusion, flash-attention forward and backward kernels "
-          f"(float32, bf16) in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: confusion, flash-attention forward (float32, bf16) and "
+          f"backward kernels in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     mma = tensor_core_instructions(libs[2])
     print("bf16 forward kernel SASS: " + json.dumps(mma), flush=True)
-    bwd_mma = tensor_core_instructions(libs[4])
-    print("bf16 backward kernels SASS: " + json.dumps(bwd_mma), flush=True)
+    bwd_mma = tensor_core_instructions(libs[3])
+    print("backward kernels SASS: " + json.dumps(bwd_mma), flush=True)
     if not mma["HGMMA"] or not bwd_mma["HGMMA"]:
-        raise AssertionError("a bf16 kernel library has no wgmma (HGMMA) "
-                             "instruction")
-    bwd_usage = resource_usage(libs[4])
-    print("bf16 backward kernels resources: " + json.dumps(bwd_usage),
-          flush=True)
+        raise AssertionError("a tensor-core kernel library has no wgmma "
+                             "(HGMMA) instruction")
+    bwd_usage = resource_usage(libs[3])
+    print("backward kernels resources: " + json.dumps(bwd_usage), flush=True)
+    # dQ and dK/dV in bf16 and float32 at d = 32, 48, 64, and the split
+    expected = {f"{kernel}<{d}>" for kernel in
+                (*FLASH_BWD_KERNEL[torch.float32],
+                 *FLASH_BWD_KERNEL[torch.bfloat16]) for d in (32, 48, 64)}
+    expected.add("split_bf16x3_kernel")
     spills = [name for name, use in bwd_usage.items()
               if use["LOCAL"] or use["STACK"]]
-    if len(bwd_usage) != 6 or spills:  # dQ and dK/dV at d = 32, 48, 64
-        raise AssertionError(f"bf16 backward kernels: {len(bwd_usage)} "
-                             f"found, stack or local memory (spills) in "
-                             f"{spills}")
+    if not expected <= set(bwd_usage) or spills:
+        raise AssertionError(f"backward kernels: missing "
+                             f"{sorted(expected - set(bwd_usage))}, stack or "
+                             f"local memory (spills) in {spills}")
 
     l2_flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
     rows = kernel_phase(device, l2_flush)
@@ -1083,33 +1151,51 @@ def main():
     flagship, setr_row = rows[0], flash_rows[0]
     setr_bf16_row = flash_rows[1]
 
-    def backward_entries(dtype, source, train, sass):
+    source = ("image_segmentation_lab_tpu_torch/csrc/"
+              "flash_attention_bwd_sm90.cu")
+    flash_py = "image_segmentation_lab_tpu/ops/pallas/flash_attention.py"
+    f32_rows = [r for r in bwd_rows if r["dtype"] == "float32"]
+
+    def backward_entries(dtype, train):
         """The kernels-line entries of the dQ and dK/dV kernels of one
         dtype, from its rows (the first is SETR's) and its train phase."""
         dtype_rows = [r for r in bwd_rows
                       if r["dtype"] == str(dtype).replace("torch.", "")]
         row, suffix = dtype_rows[0], ("_bf16" if dtype == torch.bfloat16
                                       else "")
-        return [dict({
-            "name": f"flash_attention_backward_{part}{suffix}",
-            "route": "cuda",
-            "source": f"image_segmentation_lab_tpu_torch/csrc/{source}",
-            "replaces": f"image_segmentation_lab_tpu/ops/pallas/"
-                        f"flash_attention.py:{line}",
-            "launches": train[f"backward_{part}{suffix}"],
-            "max_abs_err": max(max(r["max_abs_err"][g] for g in grads)
-                               for r in dtype_rows),
-            "ms": row[f"{part}_ms"],
-            "device_ms": row[f"{part}_device_ms"],
-            # the plain version and SDPA compute dQ, dK and dV in one call
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row[f"{part}_bound_ms"],
-            "bound_by": row[f"{part}_bound_by"],
-            "library_ms": row["sdpa_backward_ms"],
-            "library_device_ms": row["sdpa_backward_device_ms"],
-            "delta_device_ms": row["delta_device_ms"],
-        }, **sass) for part, line, grads in (("dq", 156, ("dq",)),
-                                             ("dkv", 187, ("dk", "dv")))]
+        entries = []
+        for part, line, grads in (("dq", 156, ("dq",)),
+                                  ("dkv", 187, ("dk", "dv"))):
+            entry = {
+                "name": f"flash_attention_backward_{part}{suffix}",
+                "route": "cuda",
+                "source": source,
+                "replaces": f"{flash_py}:{line}",
+                "launches": train[f"backward_{part}{suffix}"],
+                "max_abs_err": max(max(r["max_abs_err"][g] for g in grads)
+                                   for r in dtype_rows),
+                "ms": row[f"{part}_ms"],
+                "device_ms": row[f"{part}_device_ms"],
+                # the plain version and SDPA compute dQ, dK and dV in one
+                # call
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row[f"{part}_bound_ms"],
+                "bound_by": row[f"{part}_bound_by"],
+                "library_ms": row["sdpa_backward_ms"],
+                "library_device_ms": row["sdpa_backward_device_ms"],
+                "delta_device_ms": row["delta_device_ms"],
+                "backward_device_ms": row["backward_device_ms"],
+                "sass": bwd_mma}
+            if dtype == torch.float32:
+                # the bound of the route taken, six bf16 products per
+                # float32 product on the tensor cores; beside it float32's
+                # products on the CUDA cores
+                entry.update(
+                    bound_route="6 bf16 tensor-core products per float32 "
+                                "product, 989 TFLOP/s",
+                    cuda_core_bound_ms=row[f"{part}_cuda_core_bound_ms"])
+            entries.append(entry)
+        return entries
 
     print(json.dumps({"kernels": [{
         "name": "confusion_histograms",
@@ -1162,10 +1248,22 @@ def main():
         "library_ms": setr_bf16_row["sdpa_ms"],
         "library_device_ms": setr_bf16_row["sdpa_device_ms"],
         "sass": mma,
-    }] + backward_entries(torch.float32, "flash_attention_bwd.cu",
-                          train_launches, {})
-        + backward_entries(torch.bfloat16, "flash_attention_bwd_sm90.cu",
-                           amp_train_launches, {"sass": bwd_mma})}))
+    }] + backward_entries(torch.float32, train_launches) + [{
+        # the float32 backward's operand split, part of the K4/K5 port
+        "name": "split_bf16x3",
+        "route": "cuda",
+        "source": source,
+        "replaces": f"{flash_py}:156",
+        "also_replaces": f"{flash_py}:187",
+        "launches": train_launches["split_bf16x3"],
+        "max_abs_err": 0.0,  # phase 8 raises unless it gives plain's bits
+        "ms": f32_rows[0]["split_ms"],
+        "device_ms": f32_rows[0]["split_device_ms"],
+        "plain_ms": f32_rows[0]["split_plain_ms"],
+        "bound_ms": f32_rows[0]["split_bound_ms"],
+        "bound_by": f32_rows[0]["split_bound_by"],
+        "library_ms": None,
+    }] + backward_entries(torch.bfloat16, amp_train_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

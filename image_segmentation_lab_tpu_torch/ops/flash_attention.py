@@ -17,13 +17,16 @@ kernel and the dK/dV kernel, which recompute the probabilities from the
 saved lse.
 
 For CPU tensors each wrapper computes the plain PyTorch version
-(``attention_plain``, ``attention_backward_plain``); for CUDA tensors it
-launches its kernel or raises.  Each pass has two: float32 runs on the
-CUDA cores (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``),
-bfloat16 on the tensor cores (``csrc/flash_attention_sm90.cu``,
-``csrc/flash_attention_bwd_sm90.cu``: wgmma, whose rows must start on 16
-bytes).  Each is built at first use by ``ops/nvcc_build.py`` and counts
-its own launches.  The
+(``attention_plain``, ``attention_backward_plain``, ``split_bf16x3_plain``);
+for CUDA tensors it launches its kernel or raises.  The forward has two:
+float32 on the CUDA cores (``csrc/flash_attention.cu``) and bfloat16 on the
+tensor cores (``csrc/flash_attention_sm90.cu``: wgmma, whose rows must
+start on 16 bytes).  The backward runs on the tensor cores in both types
+(``csrc/flash_attention_bwd_sm90.cu``): bfloat16 as it is, float32 split
+into three bf16 parts (hi + mid + lo, exact) by ``split_bf16x3``, one launch
+for q, k, v and dO per backward call, with each float32 product taken as
+six bf16 products.  Each source is built at first use by
+``ops/nvcc_build.py``, and each kernel counts its own launches.  The
 kernels read q, k, v and dO through their strides (the head dim must be
 contiguous), so the slices of a fused qkv projection need no copy.
 """
@@ -42,10 +45,11 @@ _MAX_GRID_YZ = 65535  # heads and batch are the kernels' grid y and z
 
 # launches, counted where each kernel is launched and nowhere else
 launches = {"forward": 0, "forward_bf16": 0, "backward_dq": 0,
-            "backward_dkv": 0, "backward_dq_bf16": 0, "backward_dkv_bf16": 0}
+            "backward_dkv": 0, "backward_dq_bf16": 0, "backward_dkv_bf16": 0,
+            "split_bf16x3": 0}
+SPLIT_PARTS = 3  # bf16 parts of a float32 operand in the backward kernels
 _lib = None
 _sm90_lib = None
-_bwd_lib = None
 _sm90_bwd_lib = None
 
 
@@ -84,41 +88,31 @@ def build_sm90_library() -> ctypes.CDLL:
     return _sm90_lib
 
 
-def _load_backward(source, entry, error_string):
-    lib = load_library(source)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # q, k, v, dO, lse, delta, outputs..., n, h, lq, lk, d, strides, scale,
-    # stream
-    for name, outs in (("dq", 1), ("dkv", 2)):
-        fn = getattr(lib, entry.format(name))
-        fn.argtypes = ([ptr] * (6 + outs) + [i32] * 5
-                       + [ptr, ctypes.c_float, ptr])
-        fn.restype = i32
-    getattr(lib, error_string).argtypes = [i32]
-    getattr(lib, error_string).restype = ctypes.c_char_p
-    return lib
-
-
-def build_backward_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the float32 dQ and dK/dV
-    kernels."""
-    global _bwd_lib
-    if _bwd_lib is None:
-        _bwd_lib = _load_backward("flash_attention_bwd.cu",
-                                  "flash_attention_backward_{}_f32",
-                                  "flash_attention_backward_error_string")
-    return _bwd_lib
-
-
 def build_sm90_backward_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the bfloat16 tensor-core dQ
-    and dK/dV kernels."""
+    """Compile (once per source hash) and load the tensor-core dQ and dK/dV
+    kernels (bfloat16, and float32 as split bf16 parts) and the split."""
     global _sm90_bwd_lib
     if _sm90_bwd_lib is None:
-        _sm90_bwd_lib = _load_backward(
-            "flash_attention_bwd_sm90.cu",
-            "flash_attention_backward_{}_sm90_bf16",
-            "flash_attention_backward_sm90_error_string")
+        lib = load_library("flash_attention_bwd_sm90.cu")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, dO, lse, delta, outputs..., n, h, lq, lk, d, [strides,]
+        # scale, stream; float32 takes the split planes, which are
+        # contiguous, and no strides
+        for name, outs in (("dq", 1), ("dkv", 2)):
+            head = [ptr] * (6 + outs) + [i32] * 5
+            bf16 = getattr(lib, f"flash_attention_backward_{name}_sm90_bf16")
+            bf16.argtypes = head + [ptr, f32, ptr]
+            f32_entry = getattr(lib,
+                                f"flash_attention_backward_{name}_sm90_f32")
+            f32_entry.argtypes = head + [f32, ptr]
+            bf16.restype = f32_entry.restype = i32
+        # q, k, v, dO, their four planes, n, h, lq, lk, d, strides, stream
+        lib.split_bf16x3_f32.argtypes = [ptr] * 8 + [i32] * 5 + [ptr, ptr]
+        lib.split_bf16x3_f32.restype = i32
+        lib.flash_attention_backward_sm90_error_string.argtypes = [i32]
+        lib.flash_attention_backward_sm90_error_string.restype = \
+            ctypes.c_char_p
+        _sm90_bwd_lib = lib
     return _sm90_bwd_lib
 
 
@@ -149,6 +143,18 @@ def attention_backward_plain(q, k, v, do, lse, delta, scale):
         dk = torch.einsum("nhls,nlhd->nshd", ds.to(q.dtype).float(), qf)
         dv = torch.einsum("nhls,nlhd->nshd", p.to(do.dtype).float(), dof)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def split_bf16x3_plain(x: torch.Tensor) -> torch.Tensor:
+    """``(3, *x.shape)`` contiguous bf16 parts hi, mid, lo of a float32
+    ``x``: each part is the bf16 rounding of what the parts before it leave,
+    so ``hi + mid + lo == x`` exactly for normal float32 values (8 + 8 + 8
+    significant bits; each subtraction is exact)."""
+    parts, rest = [], x.float()
+    for _ in range(SPLIT_PARTS):
+        parts.append(rest.to(torch.bfloat16))
+        rest = rest - parts[-1].float()
+    return torch.stack(parts)
 
 
 def backward_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -287,8 +293,51 @@ def _check_backward(q, k, v, do, lse, delta):
                              f"{t.dtype}")
 
 
-def flash_attention_backward_dq(q, k, v, do, lse, delta, scale):
-    """dQ ``(N, Lq, h, d)`` in q's dtype, from the dQ kernel."""
+def split_bf16x3(q, k, v, do):
+    """The bf16 parts of float32 q, k, v and dO, each ``(3, *t.shape)``
+    contiguous as ``split_bf16x3_plain`` gives them: one launch of the split
+    kernel for all four."""
+    _check(q, k, v)
+    if q.dtype != torch.float32 or (do.shape, do.dtype, do.device) != (
+            q.shape, q.dtype, q.device):
+        raise ValueError(f"the split takes float32 q, k, v and a dO like q, "
+                         f"got {q.dtype} q {tuple(q.shape)} and {do.dtype} "
+                         f"dO {tuple(do.shape)}")
+    if q.device.type == "cpu":
+        return [split_bf16x3_plain(t) for t in (q, k, v, do)]
+    _check_kernel_inputs(q, k, v, do)
+    if q.numel() >= 2 ** 31 or k.numel() >= 2 ** 31:
+        raise ValueError("the split kernel indexes rows with 32-bit ints")
+    planes = [torch.empty((SPLIT_PARTS, *t.shape), dtype=torch.bfloat16,
+                          device=t.device) for t in (q, k, v, do)]
+    if k.numel() == 0:  # (and so q, which shares N, h and d)
+        return planes
+    n, lq, h, d = q.shape
+    lib = build_sm90_backward_library()
+    _launch(lib.split_bf16x3_f32,
+            lib.flash_attention_backward_sm90_error_string, q,
+            (*(t.data_ptr() for t in (q, k, v, do, *planes)), n, h, lq,
+             k.shape[1], d, _strides(q, k, v, do)))
+    launches["split_bf16x3"] += 1
+    return planes
+
+
+def _kernel_args(q, k, v, do, planes):
+    """The operand pointers and strides of a backward launch: bf16 inputs as
+    they are, float32 ones as their split planes (``planes``, or made
+    here), which are contiguous and need no strides."""
+    if q.dtype == torch.bfloat16:
+        _check_row_alignment(q, k, v, do)
+        return [t.data_ptr() for t in (q, k, v, do)], (_strides(q, k, v, do),)
+    if planes is None:
+        planes = split_bf16x3(q, k, v, do)
+    return [t.data_ptr() for t in planes], ()
+
+
+def flash_attention_backward_dq(q, k, v, do, lse, delta, scale, planes=None):
+    """dQ ``(N, Lq, h, d)`` in q's dtype, from the dQ kernel; for float32,
+    ``planes`` are ``split_bf16x3(q, k, v, do)`` where the caller has them
+    (else they are made here)."""
     _check_backward(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, do, lse, delta, scale)[0]
@@ -297,26 +346,25 @@ def flash_attention_backward_dq(q, k, v, do, lse, delta, scale):
     dq = torch.empty((n, lq, h, d), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, h, lq,
-            k.shape[1], d, _strides(q, k, v, do), float(scale))
-    if q.dtype == torch.float32:
-        lib = build_backward_library()
-        _launch(lib.flash_attention_backward_dq_f32,
-                lib.flash_attention_backward_error_string, q, args)
-        launches["backward_dq"] += 1
-        return dq
-    _check_row_alignment(q, k, v, do)
+    operands, strides = _kernel_args(q, k, v, do, planes)
+    args = (*operands, lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), n, h,
+            lq, k.shape[1], d, *strides, float(scale))
     lib = build_sm90_backward_library()
-    _launch(lib.flash_attention_backward_dq_sm90_bf16,
-            lib.flash_attention_backward_sm90_error_string, q, args)
-    launches["backward_dq_bf16"] += 1
+    if q.dtype == torch.float32:
+        _launch(lib.flash_attention_backward_dq_sm90_f32,
+                lib.flash_attention_backward_sm90_error_string, q, args)
+        launches["backward_dq"] += 1
+    else:
+        _launch(lib.flash_attention_backward_dq_sm90_bf16,
+                lib.flash_attention_backward_sm90_error_string, q, args)
+        launches["backward_dq_bf16"] += 1
     return dq
 
 
-def flash_attention_backward_dkv(q, k, v, do, lse, delta, scale):
+def flash_attention_backward_dkv(q, k, v, do, lse, delta, scale,
+                                 planes=None):
     """``(dK, dV)``, each ``(N, Lk, h, d)`` in k's dtype, from the dK/dV
-    kernel."""
+    kernel; ``planes`` as for ``flash_attention_backward_dq``."""
     _check_backward(q, k, v, do, lse, delta)
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, do, lse, delta, scale)[1:]
@@ -327,29 +375,33 @@ def flash_attention_backward_dkv(q, k, v, do, lse, delta, scale):
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
         return dk, dv
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            n, h, lq, lk, d, _strides(q, k, v, do), float(scale))
-    if q.dtype == torch.float32:
-        lib = build_backward_library()
-        _launch(lib.flash_attention_backward_dkv_f32,
-                lib.flash_attention_backward_error_string, q, args)
-        launches["backward_dkv"] += 1
-        return dk, dv
-    _check_row_alignment(q, k, v, do)
+    operands, strides = _kernel_args(q, k, v, do, planes)
+    args = (*operands, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), n, h, lq, lk, d, *strides, float(scale))
     lib = build_sm90_backward_library()
-    _launch(lib.flash_attention_backward_dkv_sm90_bf16,
-            lib.flash_attention_backward_sm90_error_string, q, args)
-    launches["backward_dkv_bf16"] += 1
+    if q.dtype == torch.float32:
+        _launch(lib.flash_attention_backward_dkv_sm90_f32,
+                lib.flash_attention_backward_sm90_error_string, q, args)
+        launches["backward_dkv"] += 1
+    else:
+        _launch(lib.flash_attention_backward_dkv_sm90_bf16,
+                lib.flash_attention_backward_sm90_error_string, q, args)
+        launches["backward_dkv_bf16"] += 1
     return dk, dv
 
 
 def flash_attention_backward(q, k, v, o, lse, do, scale):
     """``(dq, dk, dv)`` of ``flash_attention_forward``'s ``o`` for the
-    output gradient ``do``: delta in plain torch, then both kernels."""
+    output gradient ``do``: delta in plain torch, for float32 on the card
+    the split of q, k, v and dO once for both kernels, then both
+    kernels."""
     if do.stride(-1) != 1:
         do = do.contiguous()
     delta = backward_delta(o, do)
-    dq = flash_attention_backward_dq(q, k, v, do, lse, delta, scale)
+    planes = None
+    if q.device.type == "cuda" and q.dtype == torch.float32:
+        _check_backward(q, k, v, do, lse, delta)
+        planes = split_bf16x3(q, k, v, do)
+    dq = flash_attention_backward_dq(q, k, v, do, lse, delta, scale, planes)
     return (dq, *flash_attention_backward_dkv(q, k, v, do, lse, delta,
-                                              scale))
+                                              scale, planes))

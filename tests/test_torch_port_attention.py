@@ -170,6 +170,14 @@ def test_bf16_backward_matches_the_jax_flash_kernel(name):
                                    err_msg=name_, **BF16)
 
 
+def test_split_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(2, 5, 3, 32)
+    for bad in ((q, q, q, q[:, :4]), (q, q, q, q.double()),
+                (*(q.bfloat16(),) * 3, q)):
+        with pytest.raises(ValueError):
+            flash_attention.split_bf16x3(*bad)
+
+
 def test_backward_wrappers_reject_mismatched_rows():
     q = torch.zeros(2, 5, 3, 32)
     lse = torch.zeros(2, 3, 5)
@@ -212,7 +220,7 @@ def test_cpu_runs_the_plain_version_and_counts_nothing(monkeypatch):
     counts = dict.fromkeys(flash_attention.launches, 0)
     monkeypatch.setattr(flash_attention, "launches", dict(counts))
     for builder in ("build_library", "build_sm90_library",
-                    "build_backward_library", "build_sm90_backward_library"):
+                    "build_sm90_backward_library"):
         monkeypatch.setattr(flash_attention, builder,
                             lambda: pytest.fail("built a kernel for a CPU "
                                                 "tensor"))
@@ -222,9 +230,76 @@ def test_cpu_runs_the_plain_version_and_counts_nothing(monkeypatch):
             o, _ = flash_attention.flash_attention_forward(q, q, q, 0.25)
             o.float().sum().backward()
         assert q.grad is not None and q.grad.dtype == dtype
+    flash_attention.split_bf16x3(*(q.detach().float(),) * 4)
     assert flash_attention.launches == counts
     with pytest.raises(ValueError, match="force"):
         attention.multihead_attention(q, q, q, 0.25, force="einsum")
+
+
+def test_split_bf16x3_parts_sum_to_the_value():
+    """hi + mid + lo == x exactly, over normal float32 values of many
+    magnitudes, each part a bf16 rounding of what the parts before it
+    leave."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy((rng.randn(4096) * 2.0 ** rng.uniform(-100, 100, 4096))
+                         .astype(np.float32))
+    parts = flash_attention.split_bf16x3_plain(x)
+    assert parts.dtype == torch.bfloat16 and parts.shape == (3, 4096)
+    assert torch.equal(parts.double().sum(0), x.double())
+    assert torch.equal(parts[0], x.to(torch.bfloat16))
+    assert (parts[2] != 0).float().mean() > 0.9  # every part carries bits
+    # what a part leaves is at most half a bf16 step of the part
+    for hi, rest in ((parts[0], parts[1:]), (parts[1], parts[2:])):
+        assert bool((rest.double().sum(0).abs()
+                     <= hi.double().abs() * 2.0 ** -8).all())
+
+
+def split_product(eq, a, b, parts=flash_attention.SPLIT_PARTS):
+    """``einsum(eq, a, b)`` of float32 operands as the float32 backward
+    kernels take it: the bf16-part products a_i b_j with i + j < parts,
+    smallest first, each exact in float32 and summed in float32."""
+    pa, pb = (flash_attention.split_bf16x3_plain(t).float() for t in (a, b))
+    out = 0
+    for s in range(parts - 1, -1, -1):
+        for i in range(s, -1, -1):
+            out = out + torch.einsum(eq, pa[i], pb[s - i])
+    return out
+
+
+def test_six_bf16_products_keep_float32_accuracy():
+    """``attention_backward_plain``'s arithmetic with its five products
+    taken as six bf16-part products each agrees with the same arithmetic in
+    float64 within the card test's float32 tolerance, and with the plain
+    version itself; one bf16 product (hi * hi) does not."""
+    N, L, h, d = 1, 200, 2, 64
+    rng = np.random.RandomState(7)
+    q, k, v, do = (torch.from_numpy(rng.randn(N, L, h, d).astype(np.float32))
+                   for _ in range(4))
+    scale = d ** -0.5
+    o, lse = flash_attention.attention_plain(q, k, v, scale)
+    delta = flash_attention.backward_delta(o, do)
+
+    def backward(product, dtype):
+        qq, kk, vv, dd = (t.to(dtype) for t in (q, k, v, do))
+        p = torch.exp(product("nlhd,nshd->nhls", qq, kk) * scale
+                      - lse[..., None].to(dtype))
+        dp = product("nlhd,nshd->nhls", dd, vv)
+        ds = p * (dp - delta[..., None].to(dtype)) * scale
+        return (product("nhls,nshd->nlhd", ds, kk),
+                product("nhls,nlhd->nshd", ds, qq),
+                product("nhls,nlhd->nshd", p, dd))
+
+    exact = backward(torch.einsum, torch.float64)
+    split = backward(split_product, torch.float32)
+    plain = flash_attention.attention_backward_plain(q, k, v, do, lse, delta,
+                                                     scale)
+    one_pass = backward(lambda eq, a, b: split_product(eq, a, b, parts=1),
+                        torch.float32)
+    for got, ref, want in ((split, exact, True), (split, plain, True),
+                           (plain, exact, True), (one_pass, exact, False)):
+        close = [torch.allclose(g.double(), r.double(), **F32_GRAD)
+                 for g, r in zip(got, ref)]
+        assert all(close) if want else not any(close)
 
 
 def test_no_fallback_around_the_kernel():

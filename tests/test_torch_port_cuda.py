@@ -6,11 +6,14 @@ tests/test_torch_port_cuda.py``.  Confusion counts are integers: equality
 is exact.  Flash attention: atol 2e-6 / rtol 1e-5 in float32 at
 unit-normal inputs (float32 reduction order), 2e-2 / 2e-2 in bfloat16, as
 in tests/test_flash_attention.py; its gradients atol 2e-5 / rtol 1e-4 in
-float32, the JAX tests' gradient tolerance.
+float32, the JAX tests' gradient tolerance.  Each case draws its inputs
+from a seed fixed by its name (``case_seed``), so adding a case leaves the
+others' inputs as they were.
 """
 
 import ast
 import inspect
+import zlib
 
 import numpy as np
 import pytest
@@ -21,6 +24,11 @@ from image_segmentation_lab_tpu_torch.ops import (attention, confusion,
 from image_segmentation_lab_tpu_torch.utils.ops import resize
 
 pytestmark = pytest.mark.cuda
+
+
+def case_seed(name):
+    """A case's seed, fixed by its name alone."""
+    return zlib.crc32(name.encode())
 
 
 @pytest.fixture
@@ -43,7 +51,7 @@ CASES = {
 
 def make_inputs(name, device):
     (n, c, h, w), num_classes, ignore, dtype = CASES[name]
-    g = torch.Generator(device="cpu").manual_seed(sorted(CASES).index(name))
+    g = torch.Generator(device="cpu").manual_seed(case_seed(name))
     if name == "ties":
         logits = torch.randint(0, 2, (n, c, h, w), generator=g).float()
     else:
@@ -124,8 +132,7 @@ FLASH_TOL = {torch.float32: dict(atol=2e-6, rtol=1e-5),
 
 def flash_inputs(name, device):
     (n, h, lq, lk, d), dtype = FLASH_CASES[name]
-    g = torch.Generator(device="cpu").manual_seed(
-        sorted(FLASH_CASES).index(name))
+    g = torch.Generator(device="cpu").manual_seed(case_seed(name))
     return [torch.randn(shape, generator=g).to(device=device, dtype=dtype)
             for shape in ((n, lq, h, d), (n, lk, h, d), (n, lk, h, d))]
 
@@ -205,8 +212,7 @@ BF16_CASES = {
 
 def bf16_inputs(name, device):
     n, h, lq, lk, d = BF16_CASES[name]
-    g = torch.Generator(device="cpu").manual_seed(
-        sorted(BF16_CASES).index(name))
+    g = torch.Generator(device="cpu").manual_seed(case_seed(name))
     if name.endswith("contiguous"):
         return [torch.randn(n, length, h, d, generator=g).to(
             device=device, dtype=torch.bfloat16) for length in (lq, lk, lk)]
@@ -244,6 +250,50 @@ def test_resize_keeps_bf16_under_cuda_autocast(cuda):
                                rtol=2.0 ** -8)
 
 
+# SETR-PUP's bilinear upsamples (align_corners False) in its train step at
+# 8 x 640²: the decode head's three 2x steps on 256 channels and its last
+# on the class map, the aux head's 4x step and its loss's resize to 640²
+SETR_UPSAMPLES = [((8, 256, 40, 40), (80, 80)),
+                  ((8, 256, 80, 80), (160, 160)),
+                  ((8, 256, 160, 160), (320, 320)),
+                  ((8, 2, 320, 320), (640, 640)),
+                  ((8, 2, 40, 40), (160, 160)),
+                  ((8, 2, 160, 160), (640, 640))]
+
+
+def test_bf16_resize_backward_is_the_float32_backward_rounded_once(cuda):
+    """The JAX resize interpolates a bf16 input in float32 and casts once
+    (``image_segmentation_lab_tpu/utils/ops.py:98-99``), so its gradient is
+    the float32 gradient rounded once to bf16, the same bits on every
+    call.  The port's bf16 resize backward, at SETR's upsample shapes:
+    within one bf16 rounding step (2**-7 of the value) of the float32
+    backward rounded once, and the same bits on a second call."""
+    g = torch.Generator(device="cpu").manual_seed(case_seed("setr_upsample"))
+    faults = []
+    for (n, c, h, w), size in SETR_UPSAMPLES:
+        x = torch.randn(n, c, h, w, generator=g).to(cuda, torch.bfloat16)
+        gy = torch.randn(n, c, *size, generator=g).to(cuda, torch.bfloat16)
+
+        def grad(t):
+            leaf = t.detach().requires_grad_(True)
+            with torch.enable_grad():
+                out = resize(leaf, size, mode="bilinear", align_corners=False)
+                return torch.autograd.grad(out, leaf, gy.to(t.dtype))[0]
+
+        first, again = grad(x), grad(x)
+        ref = grad(x.float()).to(torch.bfloat16).float()
+        diff = (first.float() - ref).abs()
+        within = bool((diff <= 2.0 ** -7 * ref.abs()).all())
+        if not within or not torch.equal(first, again):
+            top = float(ref.abs().max())
+            faults.append(
+                f"{(n, c, h, w)}->{size}: {float((diff > 0).float().mean()):.3f}"
+                f" of the elements off, by up to {float(diff.max()) / top:.4f}"
+                f" of max |g| {top:.3g}; a second call off by up to "
+                f"{float((first.float() - again.float()).abs().max()):.3g}")
+    assert not faults, "; ".join(faults)
+
+
 def test_bf16_kernel_refuses_rows_off_16_bytes(cuda):
     x = torch.zeros(1, 8, 1, 72, device=cuda, dtype=torch.bfloat16)
     q = x[..., 4:68]  # rows start 8 bytes in
@@ -253,8 +303,9 @@ def test_bf16_kernel_refuses_rows_off_16_bytes(cuda):
 
 # (N, h, Lq, Lk, d), dtype: the backward kernels at SETR's training shape,
 # d = 32/48/64, Lq != Lk, ragged, Lk = 65 (63 masked keys in the last tile)
-# and Lk = 1; q, k, v are views of one fused projection (or q and a fused
-# kv) unless named contiguous
+# and Lk = 1, in both dtypes (float32 through the split into three bf16
+# parts); q, k, v are views of one fused projection (or q and a fused kv)
+# unless named contiguous
 BWD_CASES = {
     "setr_f32": ((8, 6, 1601, 1601, 64), torch.float32),
     "setr_bf16": ((8, 6, 1601, 1601, 64), torch.bfloat16),
@@ -269,10 +320,16 @@ BWD_CASES = {
     "lq_ne_lk_d48_bf16": ((2, 2, 100, 37, 48), torch.bfloat16),
     "one_key_bf16": ((2, 2, 70, 1, 64), torch.bfloat16),
     "fit_128_contiguous_bf16": ((2, 3, 128, 128, 64), torch.bfloat16),
+    "one_key_f32": ((2, 2, 70, 1, 64), torch.float32),
+    "d32_f32": ((2, 4, 200, 200, 32), torch.float32),
+    "fit_128_contiguous_f32": ((2, 3, 128, 128, 64), torch.float32),
 }
 # the launch counter of each backward kernel, by dtype
 BWD_KEYS = {torch.float32: ("backward_dq", "backward_dkv"),
             torch.bfloat16: ("backward_dq_bf16", "backward_dkv_bf16")}
+# float32 dQ and dK/dV wrappers called without the split planes each split
+# q, k, v and dO themselves
+BWD_SPLITS = {torch.float32: 2, torch.bfloat16: 0}
 
 
 def bwd_tol(ref):
@@ -291,15 +348,14 @@ def bwd_tol(ref):
 
 def projection_views(name, device):
     (n, h, lq, lk, d), dtype = BWD_CASES[name]
-    g = torch.Generator(device="cpu").manual_seed(
-        sorted(BWD_CASES).index(name))
+    g = torch.Generator(device="cpu").manual_seed(case_seed(name))
 
     def proj(length, parts):
         x = torch.randn(n, length, parts * h * d, generator=g)
         x = x.to(device=device, dtype=dtype)
         return [t.unflatten(-1, (h, d)) for t in x.split(h * d, dim=-1)]
 
-    if name.endswith("contiguous_bf16"):
+    if "_contiguous" in name:
         qkv = [torch.randn(n, length, h, d, generator=g).to(
             device=device, dtype=dtype) for length in (lq, lk, lk)]
     else:
@@ -327,7 +383,7 @@ def test_flash_backward_kernels_match_plain(cuda, name, monkeypatch):
     monkeypatch.setattr(flash_attention, "launches",
                         dict.fromkeys(flash_attention.launches, 0))
     q, k, v, do = projection_views(name, cuda)
-    assert name.endswith("contiguous_bf16") or not k.is_contiguous()
+    assert "_contiguous" in name or not k.is_contiguous()
     args, outs = backward_kernels(q, k, v, do)
     with torch.no_grad():
         refs = flash_attention.attention_backward_plain(*args)
@@ -340,10 +396,12 @@ def test_flash_backward_kernels_match_plain(cuda, name, monkeypatch):
                 if key.startswith("backward")}
     assert backward == {key: int(key in BWD_KEYS[q.dtype])
                         for key in backward}
+    assert flash_attention.launches["split_bf16x3"] == BWD_SPLITS[q.dtype]
 
 
 @pytest.mark.parametrize("name", ["setr_bf16", "masked_tail_bf16",
-                                  "lq_ne_lk_d48_bf16"])
+                                  "lq_ne_lk_d48_bf16", "setr_f32",
+                                  "masked_tail"])
 def test_bf16_backward_kernels_repeat_bit_for_bit(cuda, name):
     """Each output row has one owner and no atomics: two calls on the same
     inputs give the same bits."""
@@ -370,11 +428,43 @@ def test_bf16_backward_refuses_rows_off_16_bytes(cuda):
         flash_attention.flash_attention_backward_dkv(*bad)
 
 
+@pytest.mark.parametrize("name", ["setr_f32", "masked_tail",
+                                  "lq_ne_lk_d48", "fit_128_contiguous_f32"])
+def test_split_kernel_matches_plain_exactly(cuda, name, monkeypatch):
+    """The split of float32 q, k, v and dO into three bf16 planes each, in
+    one launch: the same bits as ``split_bf16x3_plain``, and the parts sum
+    to the value."""
+    monkeypatch.setattr(flash_attention, "launches",
+                        dict.fromkeys(flash_attention.launches, 0))
+    tensors = projection_views(name, cuda)
+    planes = flash_attention.split_bf16x3(*tensors)
+    assert flash_attention.launches["split_bf16x3"] == 1
+    for t, got in zip(tensors, planes):
+        assert got.dtype == torch.bfloat16 and got.is_contiguous()
+        assert torch.equal(got, flash_attention.split_bf16x3_plain(t))
+        assert torch.equal(got.double().sum(0), t.double())
+
+
+def test_float32_backward_takes_rows_off_16_bytes(cuda):
+    """The float32 kernels read the split planes, which are contiguous:
+    rows that start 4 bytes in need no alignment, unlike bf16's."""
+    q, k, v, do = projection_views("fit_128_contiguous_f32", cuda)
+    padded = torch.zeros(*do.shape[:-1], do.shape[-1] + 2, device=cuda)
+    padded[..., 1:-1] = do
+    off = padded[..., 1:-1]  # rows start 4 bytes in
+    assert off.data_ptr() % 16 and off.stride(1) % 4
+    args, outs = backward_kernels(q, k, v, off)
+    with torch.no_grad():
+        refs = flash_attention.attention_backward_plain(*args)
+    for out, ref in zip(outs, refs):
+        torch.testing.assert_close(out, ref, **bwd_tol(ref))
+
+
 def test_grad_through_multihead_attention_launches_each_kernel_once(
         cuda, monkeypatch):
     """At SETR's qkv layout: one forward and one backward through the
-    Function launch K3, K4 and K5 once each and agree with autograd
-    through the plain version."""
+    Function launch K3, the split, K4 and K5 once each and agree with
+    autograd through the plain version."""
     monkeypatch.setattr(flash_attention, "launches",
                         dict.fromkeys(flash_attention.launches, 0))
     g = torch.Generator(device="cpu").manual_seed(7)
@@ -392,14 +482,14 @@ def test_grad_through_multihead_attention_launches_each_kernel_once(
             grads[force], = torch.autograd.grad(out, leaf, do)
     assert flash_attention.launches == {
         "forward": 1, "forward_bf16": 0, "backward_dq": 1, "backward_dkv": 1,
-        "backward_dq_bf16": 0, "backward_dkv_bf16": 0}
+        "backward_dq_bf16": 0, "backward_dkv_bf16": 0, "split_bf16x3": 1}
     torch.testing.assert_close(grads[None], grads["plain"],
                                **bwd_tol(grads["plain"]))
 
 
 def test_flash_backward_counts_its_launches(cuda, monkeypatch):
-    """float32 under its own keys, bf16 under ``*_bf16``; the plain
-    version counts nothing."""
+    """float32 under its own keys (one split a backward call), bf16 under
+    ``*_bf16``; the plain versions count nothing."""
     monkeypatch.setattr(flash_attention, "launches",
                         dict.fromkeys(flash_attention.launches, 0))
     for name in ("ragged_130", "ragged_130_bf16"):
@@ -412,9 +502,10 @@ def test_flash_backward_counts_its_launches(cuda, monkeypatch):
             delta = flash_attention.backward_delta(o, do)
             flash_attention.attention_backward_plain(q, k, v, do, lse, delta,
                                                      0.125)
+            flash_attention.split_bf16x3_plain(q.float())
     assert flash_attention.launches == {
         "forward": 1, "forward_bf16": 1, "backward_dq": 2, "backward_dkv": 2,
-        "backward_dq_bf16": 2, "backward_dkv_bf16": 2}
+        "backward_dq_bf16": 2, "backward_dkv_bf16": 2, "split_bf16x3": 2}
 
 
 def test_flash_unsupported_head_dim_raises(cuda):
@@ -433,7 +524,6 @@ def test_flash_without_library_raises(cuda, monkeypatch, tmp_path):
         o, lse = flash_attention.flash_attention_forward(q, k, v, 0.125)
     monkeypatch.setattr(flash_attention, "_lib", None)
     monkeypatch.setattr(flash_attention, "_sm90_lib", None)
-    monkeypatch.setattr(flash_attention, "_bwd_lib", None)
     monkeypatch.setattr(flash_attention, "_sm90_bwd_lib", None)
     monkeypatch.setattr(nvcc_build, "_BUILD_DIR", tmp_path)
     monkeypatch.setattr(nvcc_build.shutil, "which", lambda _: None)
