@@ -50,11 +50,18 @@ printing its own lines; any failure raises and the exit code is not 0:
    ``F.scaled_dot_product_attention`` in the same dtype as a yardstick
    (never on the path) and the device time of ``backward_delta`` (the
    kernels' delta = rowsum(dO·O), plain torch);
+8b. resize backward kernel (the gradient of the bilinear resize, a gather
+   with no atomics): against its plain version (the same bits) at SETR's
+   six upsamples in its train step, in float32 and bfloat16; the bf16
+   result must be the kernel's float32 result rounded once and a second
+   call the same bits; beside it ``F.interpolate``'s own backward
+   (``aten::upsample_bilinear2d_backward``) as a yardstick;
 9. SETR train slice: full-width SETR-PUP ViT-S/16 through ``init_model``,
    ``create_train_state`` and ``make_train_step`` (SGD and StepLR of the
    kvasir schedule, drop path 0.1 from a CUDA generator) for 10 steps on
    one batch of eight synthetic 640² images; exactly 12 launches of each
-   flash kernel and of the split per step, finite and falling losses,
+   flash kernel and of the split per step and 6 of the resize backward
+   (SETR_RESIZES), finite and falling losses,
    moved parameters and BN statistics, gradients in the aux head; ms per
    step, peak memory and the device time per kernel class of one step
    from ``torch.profiler``;
@@ -115,7 +122,8 @@ from image_segmentation_lab_tpu_torch.core.mixed_precision import \
     policy_scope
 from image_segmentation_lab_tpu_torch.models.backbones import vit
 from image_segmentation_lab_tpu_torch.models.basic import LayerNorm
-from image_segmentation_lab_tpu_torch.ops import confusion, flash_attention
+from image_segmentation_lab_tpu_torch.ops import (confusion, flash_attention,
+                                                  resize_backward)
 from image_segmentation_lab_tpu_torch.train_state import (create_train_state,
                                                           make_train_step)
 
@@ -167,6 +175,16 @@ FLASH_BWD_SHAPES = [  # (N, h, Lq, Lk, d), dtype
     ((1, 2, 300, 300, 48), torch.float32),     # d = 48
     ((1, 2, 300, 300, 48), torch.bfloat16),
 ]
+# SETR-PUP's bilinear resizes under grad in its train step at 8 x 640²
+# (align_corners False): the decode head's three 2x steps on 256 channels
+# and its last on the class map, the aux head's 4x step and its loss's
+# resize to 640²; (N, C, h, w) -> (H, W)
+SETR_RESIZES = [((8, 256, 40, 40), (80, 80)),
+                ((8, 256, 80, 80), (160, 160)),
+                ((8, 256, 160, 160), (320, 320)),
+                ((8, 2, 320, 320), (640, 640)),
+                ((8, 2, 40, 40), (160, 160)),
+                ((8, 2, 160, 160), (640, 640))]
 SCHEDULE = ROOT / "configs/schedule/kvasir_training_schedule.py"
 TRAIN_BATCH, TRAIN_IMAGE_SIZE, TRAIN_STEPS = 8, 640, 10
 AGREE_BATCH, AGREE_IMAGE_SIZE = 2, 320
@@ -528,7 +546,8 @@ def check_class_map(pred, shape, what):
 
 
 def reset_counts():
-    for counts in (flash_attention.launches, confusion.launches):
+    for counts in (flash_attention.launches, confusion.launches,
+                   resize_backward.launches):
         for key in counts:
             counts[key] = 0
 
@@ -862,6 +881,72 @@ def flash_backward_phase(device, l2_flush):
     return rows
 
 
+def resize_backward_phase(device, l2_flush):
+    """The resize backward kernel against its plain version (the same
+    bits), its own float32 result rounded once (bf16) and its second call
+    (the same bits), at SETR's resizes in both dtypes; times of the
+    kernel, the plain version and ``F.interpolate``'s own backward."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    rows = []
+    for (n, c, h, w), size in SETR_RESIZES:
+        for dtype in (torch.float32, torch.bfloat16):
+            gy = torch.randn((n, c, *size), generator=gen,
+                             device=device).to(dtype)
+
+            def kernel():
+                return resize_backward.resize_backward(gy, (h, w), False)
+
+            def plain():
+                return resize_backward.resize_backward_plain(gy, (h, w),
+                                                             False)
+
+            def library():
+                return torch.ops.aten.upsample_bilinear2d_backward(
+                    gy, list(size), [n, c, h, w], False)
+
+            got = kernel()
+            exact = torch.equal(got, plain())
+            repeat = torch.equal(got, kernel())
+            rounded_once = dtype == torch.float32 or torch.equal(
+                got, resize_backward.resize_backward(
+                    gy.float(), (h, w), False).to(dtype))
+            ref = library().float()
+            lib_err = float((got.float() - ref).abs().max())
+            torch.cuda.synchronize()
+            if not (exact and repeat and rounded_once):
+                raise AssertionError(
+                    f"resize backward at {(n, c, h, w)}->{size} {dtype}: "
+                    f"same bits as plain {exact}, on a second call "
+                    f"{repeat}, bf16 = float32 rounded once {rounded_once}")
+            # reads g once, writes dx once (and the small tables); three
+            # operations a tap: the weights' product, its product with g,
+            # the add
+            taps = (n * c
+                    * len(resize_backward.axis_table(h, size[0], False)[1])
+                    * len(resize_backward.axis_table(w, size[1], False)[1]))
+            bound, bound_by = bound_ms(
+                (gy.numel() + got.numel()) * gy.element_size(), 3.0 * taps,
+                PEAK_FLOPS[torch.float32])
+            flush = l2_flush.zero_
+            row = dict(
+                shape=[n, c, h, w], size=list(size),
+                dtype=str(dtype).replace("torch.", ""),
+                same_bits_as_plain=exact, repeats_bit_for_bit=repeat,
+                bf16_is_float32_rounded_once=rounded_once,
+                max_abs_err=0.0, vs_library_max_abs_err=lib_err,
+                max_abs_grad=float(ref.abs().max()),
+                ms=cuda_ms(kernel, flush),
+                device_ms=device_ms(kernel, "resize_backward_kernel", flush),
+                plain_ms=cuda_ms(plain, flush),
+                library_ms=cuda_ms(library, flush),
+                library_device_ms=device_ms(library, None, flush),
+                bound_ms=bound, bound_by=bound_by)
+            print("resize backward:", json.dumps(row), flush=True)
+            rows.append(row)
+            del gy, got, ref
+    return rows
+
+
 FLASH_KEYS = {False: ("forward", "backward_dq", "backward_dkv",
                       "split_bf16x3"),
               True: ("forward_bf16", "backward_dq_bf16", "backward_dkv_bf16")}
@@ -910,6 +995,8 @@ def setr_train_phase(device, amp=False):
     for _ in range(TRAIN_STEPS):
         rates.append(state.optimizer.param_groups[0]["lr"])
         counts = flash_counts(amp)
+        counts["resize_backward"] = resize_backward.launches[
+            "resize_backward"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with policy_scope(policy):
@@ -917,9 +1004,9 @@ def setr_train_phase(device, amp=False):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         state.step += 1
-        per_step.append({k: v - counts[k]
-                         for k, v in flash_counts(amp).items()})
-    launches = flash_counts(amp)
+        per_step.append({k: v - counts[k] for k, v in dict(
+            flash_counts(amp), **resize_backward.launches).items()})
+    launches = dict(flash_counts(amp), **resize_backward.launches)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     other = {k: flash_attention.launches[k] for k in FLASH_KEYS[not amp]}
     if any(other.values()):
@@ -927,10 +1014,12 @@ def setr_train_phase(device, amp=False):
                              f"flash kernels: {other}")
 
     losses = [{k: float(v) for k, v in log.items()} for log in logs]
+    expected = {k: len(SETR_RESIZES) if k == "resize_backward"
+                else SETR_LAYERS for k in launches}
     for i, (log, counts) in enumerate(zip(losses, per_step)):
-        if any(n != SETR_LAYERS for n in counts.values()):
+        if counts != expected:
             raise AssertionError(f"step {i + 1} launched {counts}, not "
-                                 f"{SETR_LAYERS} of each flash kernel")
+                                 f"{expected}")
         if not all(math.isfinite(v) for v in log.values()):
             raise AssertionError(f"step {i + 1}: non-finite log {log}")
     if not losses[-1]["loss"] < losses[0]["loss"]:
@@ -1102,13 +1191,14 @@ def main():
     t0 = time.perf_counter()
     builders = (confusion.build_library, flash_attention.build_library,
                 flash_attention.build_sm90_library,
-                flash_attention.build_sm90_backward_library)
+                flash_attention.build_sm90_backward_library,
+                resize_backward.build_library)
     with ThreadPoolExecutor(len(builders)) as pool:  # nvcc runs outside the GIL
         libs = [build.result() for build in [pool.submit(b)
                                              for b in builders]]
     print(f"build: confusion, flash-attention forward (float32, bf16) and "
-          f"backward kernels in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"backward, resize backward kernels in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     mma = tensor_core_instructions(libs[2])
     print("bf16 forward kernel SASS: " + json.dumps(mma), flush=True)
     bwd_mma = tensor_core_instructions(libs[3])
@@ -1129,11 +1219,19 @@ def main():
         raise AssertionError(f"backward kernels: missing "
                              f"{sorted(expected - set(bwd_usage))}, stack or "
                              f"local memory (spills) in {spills}")
+    resize_usage = resource_usage(libs[4])
+    print("resize backward kernel resources: " + json.dumps(resize_usage),
+          flush=True)
+    if "resize_backward_kernel" not in resize_usage or any(
+            use["LOCAL"] or use["STACK"] for use in resize_usage.values()):
+        raise AssertionError(f"resize backward kernel missing or spilling: "
+                             f"{resize_usage}")
 
     l2_flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
     rows = kernel_phase(device, l2_flush)
     flash_rows = flash_phase(device, l2_flush)
     bwd_rows = flash_backward_phase(device, l2_flush)
+    resize_rows = resize_backward_phase(device, l2_flush)
     del l2_flush
     model, x_nchw, launches = slice_phase(device)
     cpu_agreement_phase(model, x_nchw, *SLIDE["crop_size"], "deeplabv3")
@@ -1149,6 +1247,9 @@ def main():
     amp_train_launches = setr_train_phase(device, amp=True)
 
     flagship, setr_row = rows[0], flash_rows[0]
+    resize_row = next(r for r in resize_rows
+                      if r["shape"] == [8, 256, 160, 160]
+                      and r["dtype"] == "bfloat16")
     setr_bf16_row = flash_rows[1]
 
     source = ("image_segmentation_lab_tpu_torch/csrc/"
@@ -1263,7 +1364,25 @@ def main():
         "bound_ms": f32_rows[0]["split_bound_ms"],
         "bound_by": f32_rows[0]["split_bound_by"],
         "library_ms": None,
-    }] + backward_entries(torch.bfloat16, amp_train_launches)}))
+    }] + backward_entries(torch.bfloat16, amp_train_launches) + [{
+        # the bilinear resize's gradient: XLA transposes the JAX resize's
+        # gathers, no Pallas kernel; the row is SETR's largest upsample in
+        # bf16, as the amp step runs it
+        "name": "resize_backward",
+        "route": "cuda",
+        "source": "image_segmentation_lab_tpu_torch/csrc/resize_backward.cu",
+        "replaces": "image_segmentation_lab_tpu/utils/ops.py:74",
+        "launches": train_launches["resize_backward"]
+                    + amp_train_launches["resize_backward"],
+        "max_abs_err": 0.0,  # phase 8b raises unless it gives plain's bits
+        "ms": resize_row["ms"],
+        "device_ms": resize_row["device_ms"],
+        "plain_ms": resize_row["plain_ms"],
+        "bound_ms": resize_row["bound_ms"],
+        "bound_by": resize_row["bound_by"],
+        "library_ms": resize_row["library_ms"],
+        "library_device_ms": resize_row["library_device_ms"],
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,8 +13,13 @@ call time and resizes to that size, as the JAX module does.
 The output keeps the input's dtype, as the JAX resize's does, also under
 the bf16 policy: CUDA autocast would run ``F.interpolate`` in float32 (the
 upsamples are on its float32 list), so resize steps out of autocast.  A
-bf16 input is interpolated with float32 arithmetic inside the kernel and
-rounded once.
+bf16 input is interpolated with float32 arithmetic inside
+``F.interpolate``'s kernel and rounded once, on the CPU and the card alike,
+as the JAX resize computes it.  Under grad, a bilinear resize goes through
+``BilinearResize``, whose backward is ``ops/resize_backward.py``: float32
+sums rounded once, with no atomics, where ``F.interpolate``'s own CUDA
+backward adds with atomics (in bf16 for bf16 tensors).  Bicubic and nearest
+keep ``F.interpolate``'s backward.
 """
 
 from __future__ import annotations
@@ -25,6 +30,26 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.resize_backward import resize_backward
+
+
+class BilinearResize(torch.autograd.Function):
+    """``F.interpolate(x, size, mode="bilinear")`` with the gather backward
+    of ``ops/resize_backward.py``."""
+
+    @staticmethod
+    def forward(ctx, x, size, align_corners):
+        ctx.in_size, ctx.dtype = tuple(x.shape[2:]), x.dtype
+        ctx.align_corners = align_corners
+        return F.interpolate(x, size=size, mode="bilinear",
+                             align_corners=align_corners)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return (resize_backward(grad, ctx.in_size, ctx.align_corners,
+                                ctx.dtype), None, None)
 
 
 def resize(input, size: Sequence[int], mode: str = "bilinear",
@@ -42,6 +67,9 @@ def resize(input, size: Sequence[int], mode: str = "bilinear",
     if (H, W) == size:
         return input
     with torch.autocast(input.device.type, enabled=False):
+        if (mode == "bilinear" and torch.is_grad_enabled()
+                and input.requires_grad):
+            return BilinearResize.apply(input, size, bool(align_corners))
         return F.interpolate(input, size=size, mode=mode,
                              align_corners=bool(align_corners))
 

@@ -25,7 +25,8 @@ from image_segmentation_lab_tpu.ops import attention as jattention  # noqa: E402
 from image_segmentation_lab_tpu.ops.pallas import \
     flash_attention as jflash  # noqa: E402
 from image_segmentation_lab_tpu_torch.ops import (  # noqa: E402
-    attention, flash_attention)
+    attention, flash_attention, resize_backward)
+from image_segmentation_lab_tpu_torch.utils.ops import resize  # noqa: E402
 
 F32 = dict(atol=2e-6, rtol=1e-5)
 F32_GRAD = dict(atol=2e-5, rtol=1e-4)
@@ -213,25 +214,32 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_cpu_runs_the_plain_version_and_counts_nothing(monkeypatch):
-    """A CPU tensor never builds or launches a kernel, forward or backward;
-    the plain versions give the gradient.  Grad is switched on here: other
-    test modules turn it off for the whole process when they are
-    imported."""
+    """A CPU tensor never builds or launches a kernel, forward or backward
+    (attention and the resize); the plain versions give the gradient.  Grad
+    is switched on here: other test modules turn it off for the whole
+    process when they are imported."""
     counts = dict.fromkeys(flash_attention.launches, 0)
     monkeypatch.setattr(flash_attention, "launches", dict(counts))
-    for builder in ("build_library", "build_sm90_library",
-                    "build_sm90_backward_library"):
-        monkeypatch.setattr(flash_attention, builder,
+    monkeypatch.setattr(resize_backward, "launches", {"resize_backward": 0})
+    for module, builder in ((flash_attention, "build_library"),
+                            (flash_attention, "build_sm90_library"),
+                            (flash_attention, "build_sm90_backward_library"),
+                            (resize_backward, "build_library")):
+        monkeypatch.setattr(module, builder,
                             lambda: pytest.fail("built a kernel for a CPU "
                                                 "tensor"))
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.randn(1, 7, 2, 16, dtype=dtype, requires_grad=True)
+        x = torch.randn(1, 2, 3, 4, dtype=dtype, requires_grad=True)
         with torch.enable_grad():
             o, _ = flash_attention.flash_attention_forward(q, q, q, 0.25)
             o.float().sum().backward()
+            resize(x, (6, 8)).float().sum().backward()
         assert q.grad is not None and q.grad.dtype == dtype
+        assert x.grad is not None and x.grad.dtype == dtype
     flash_attention.split_bf16x3(*(q.detach().float(),) * 4)
     assert flash_attention.launches == counts
+    assert resize_backward.launches == {"resize_backward": 0}
     with pytest.raises(ValueError, match="force"):
         attention.multihead_attention(q, q, q, 0.25, force="einsum")
 

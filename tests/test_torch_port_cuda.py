@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from image_segmentation_lab_tpu_torch.ops import (attention, confusion,
-                                                  flash_attention, nvcc_build)
+                                                  flash_attention, nvcc_build,
+                                                  resize_backward)
 from image_segmentation_lab_tpu_torch.utils.ops import resize
 
 pytestmark = pytest.mark.cuda
@@ -292,6 +293,62 @@ def test_bf16_resize_backward_is_the_float32_backward_rounded_once(cuda):
                 f" of max |g| {top:.3g}; a second call off by up to "
                 f"{float((first.float() - again.float()).abs().max()):.3g}")
     assert not faults, "; ".join(faults)
+
+
+def test_bf16_resize_forward_is_the_float32_forward_rounded_once(cuda):
+    """``F.interpolate``'s bf16 kernel computes in float32 and rounds once,
+    as the JAX resize does: the same bits as the float32 forward cast to
+    bf16, with grad (through ``BilinearResize``) and without."""
+    g = torch.Generator(device="cpu").manual_seed(case_seed("setr_forward"))
+    for (n, c, h, w), size in SETR_UPSAMPLES:
+        x = torch.randn(n, c, h, w, generator=g).to(cuda, torch.bfloat16)
+        ref = resize(x.float(), size).to(torch.bfloat16)
+        assert torch.equal(resize(x, size), ref)
+        with torch.enable_grad():
+            out = resize(x.clone().requires_grad_(True), size)
+        assert type(out.grad_fn).__name__ == "BilinearResizeBackward"
+        assert torch.equal(out.detach(), ref)
+
+
+# the resize backward kernel: SETR's six upsamples, a ragged upsample, a
+# downsample, align_corners, and a 1-pixel input (the ASPP image pool)
+RESIZE_CASES = {
+    **{f"setr_{i}": (shape, size, False)
+       for i, (shape, size) in enumerate(SETR_UPSAMPLES)},
+    "ragged_up": ((2, 3, 13, 10), (29, 17), False),
+    "down": ((2, 3, 13, 10), (5, 7), False),
+    "up_align_corners": ((2, 3, 13, 10), (25, 19), True),
+    "down_align_corners": ((1, 2, 17, 9), (8, 4), True),
+    "one_pixel": ((2, 5, 1, 1), (65, 65), False),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(RESIZE_CASES))
+def test_resize_backward_kernel_matches_plain(cuda, name, dtype,
+                                              monkeypatch):
+    """One launch gives the plain version's bits (the same float32 steps in
+    the same order), the same bits again on a second call, and in bf16 the
+    kernel's own float32 result rounded once."""
+    monkeypatch.setattr(resize_backward, "launches", {"resize_backward": 0})
+    (n, c, h, w), size, ac = RESIZE_CASES[name]
+    g = torch.Generator(device="cpu").manual_seed(case_seed(name))
+    gy = torch.randn(n, c, *size, generator=g).to(cuda, dtype)
+    got = resize_backward.resize_backward(gy, (h, w), ac)
+    assert resize_backward.launches == {"resize_backward": 1}
+    assert got.dtype == dtype and got.shape == (n, c, h, w)
+    assert torch.equal(got, resize_backward.resize_backward_plain(
+        gy, (h, w), ac))
+    assert torch.equal(got, resize_backward.resize_backward(gy, (h, w), ac))
+    if dtype == torch.bfloat16:
+        f32 = resize_backward.resize_backward(gy.float(), (h, w), ac)
+        assert torch.equal(got, f32.to(torch.bfloat16))
+
+
+def test_resize_backward_refuses_other_dtypes(cuda):
+    gy = torch.zeros(1, 2, 8, 8, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        resize_backward.resize_backward(gy, (4, 4), False)
 
 
 def test_bf16_kernel_refuses_rows_off_16_bytes(cuda):

@@ -30,6 +30,7 @@ from image_segmentation_lab_tpu_torch.models.common.conv_module import \
     ConvModule  # noqa: E402
 from image_segmentation_lab_tpu_torch.models.decode_heads import (  # noqa: E402,E501
     aspp_head, fcn_head)
+from image_segmentation_lab_tpu_torch.ops import resize_backward  # noqa: E402,E501
 from image_segmentation_lab_tpu_torch.utils.ops import resize  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -146,6 +147,98 @@ def test_pooling_and_resize(op):
             resize(px, (25, 19), align_corners=True)),
     }[op]()
     np.testing.assert_allclose(to_nhwc(out), np.asarray(ref), **TOL)
+
+
+# (N, C, H, W), output size, align_corners: up 2x and 4x (SETR's steps),
+# a ragged up, down, align_corners up and down, and a 1-pixel input (the
+# ASPP image pool's resize)
+RESIZES = {
+    "up_2x": ((2, 3, 6, 5), (12, 10), False),
+    "up_4x": ((1, 2, 5, 4), (20, 16), False),
+    "up_ragged": ((2, 3, 13, 10), (29, 17), False),
+    "down": ((2, 3, 13, 10), (5, 7), False),
+    "up_align_corners": ((2, 3, 13, 10), (25, 19), True),
+    "down_align_corners": ((1, 2, 17, 9), (8, 4), True),
+    "one_pixel": ((2, 3, 1, 1), (9, 7), False),
+}
+# resize_backward_plain against F.interpolate's own CPU backward: the same
+# float32 weights and products, summed in another order
+RESIZE_ULPS = 8
+
+
+def resize_grad(x, gy, size, align_corners, fn=resize):
+    leaf = x.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        out = fn(leaf, size, align_corners=align_corners)
+        return out, torch.autograd.grad(out, leaf, gy.to(x.dtype))[0]
+
+
+def resize_inputs(name, seed=11):
+    (n, c, h, w), size, align_corners = RESIZES[name]
+    rng = np.random.RandomState(seed)
+    return (torch.from_numpy(rng.randn(n, c, h, w).astype(np.float32)),
+            torch.from_numpy(rng.randn(n, c, *size).astype(np.float32)),
+            size, align_corners)
+
+
+@pytest.mark.parametrize("name", sorted(RESIZES))
+def test_bf16_resize_gradient_is_the_float32_gradient_rounded_once(name):
+    """Forward and backward in bf16 are the float32 ones rounded once, bit
+    for bit (as the JAX resize computes them), and a second call gives the
+    same bits; the backward is the port's own."""
+    x, gy, size, ac = resize_inputs(name)
+    xb, gb = x.bfloat16(), gy.bfloat16()
+    out, grad = resize_grad(xb, gb, size, ac)
+    out32, grad32 = resize_grad(xb.float(), gb.float(), size, ac)
+    assert type(out.grad_fn).__name__ == "BilinearResizeBackward"
+    assert grad.dtype == torch.bfloat16
+    assert torch.equal(out, out32.bfloat16())
+    assert torch.equal(grad, grad32.bfloat16())
+    assert torch.equal(grad, resize_grad(xb, gb, size, ac)[1])
+
+
+@pytest.mark.parametrize("name", sorted(RESIZES))
+def test_resize_backward_plain_is_the_interpolate_backward(name):
+    """Within a few float32 ulps of max |g| of ``F.interpolate``'s CPU
+    backward, on the CPU through the wrapper, which runs the plain version
+    and launches nothing."""
+    x, gy, size, ac = resize_inputs(name)
+    _, ref = resize_grad(
+        x, gy, size, ac,
+        fn=lambda t, s, align_corners: F.interpolate(
+            t, size=s, mode="bilinear", align_corners=align_corners))
+    launched = dict(resize_backward.launches)
+    got = resize_backward.resize_backward(gy, x.shape[2:], ac)
+    assert resize_backward.launches == launched
+    assert torch.equal(got, resize_backward.resize_backward_plain(
+        gy, x.shape[2:], ac))
+    tol = RESIZE_ULPS * torch.finfo(torch.float32).eps * float(
+        ref.abs().max())
+    assert float((got - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(RESIZES))
+def test_resize_gradient_matches_jax_vjp(name, dtype):
+    """The port's resize gradient against ``jax.vjp`` of the JAX resize
+    (NHWC): in float32 within a few float32 ulps of max |g| (the JAX
+    weights are rounded from float64, the port's computed in float32 as
+    ``F.interpolate`` computes them); in bf16 each is the float32 gradient
+    rounded once, so they differ by at most one bf16 step where the two
+    float32 gradients straddle a rounding boundary."""
+    x, gy, size, ac = resize_inputs(name, seed=12)
+    jdtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jx, jg = (jnp.asarray(to_nhwc(t), jdtype) for t in (x, gy))
+    _, vjp = jax.vjp(lambda t: jresize(t, size, align_corners=ac,
+                                       warning=False), jx)
+    ref = to_nchw(np.asarray(vjp(jg)[0].astype(jnp.float32)))
+    tdtype = getattr(torch, dtype)
+    _, got = resize_grad(x.to(tdtype), gy.to(tdtype), size, ac)
+    assert got.dtype == tdtype
+    top = float(ref.abs().max())
+    ulps = RESIZE_ULPS * torch.finfo(torch.float32).eps * top
+    rtol = 0.0 if dtype == "float32" else 2.0 ** -7
+    assert bool(((got.float() - ref).abs() <= ulps + rtol * ref.abs()).all())
 
 
 @pytest.mark.parametrize("fault", ["unused_jax_leaf", "unfilled_port_tensor",
