@@ -6,22 +6,25 @@ printing its own lines; any failure raises and the exit code is not 0:
 
 1. device: the card's name and power limit;
 2. build: compile the four kernel libraries from ``csrc/`` (confusion,
-   flash-attention forward in float32 and in bf16, flash-attention
-   backward on the tensor cores in bf16 and in float32 with its split),
-   one ``nvcc`` each, in parallel; count the tensor-core instructions
-   (HGMMA, HMMA) in the bf16 forward's and the backward's SASS, which must
-   not be 0, and read each backward kernel's registers, stack, shared and
-   local memory (``cuobjdump -res-usage``): the twelve backward kernels
-   (dQ and dK/dV, bf16 and float32, d = 32/48/64) and the split must all
+   flash-attention forward and backward on the tensor cores, each in bf16
+   and in float32 with its split, resize backward), one ``nvcc`` each, in
+   parallel; count the tensor-core instructions (HGMMA, HMMA) in the
+   forward's and the backward's SASS, which must not be 0, and read each
+   kernel's registers, stack, shared and local memory (``cuobjdump
+   -res-usage``): the six forward kernels (bf16 and float32, d =
+   32/48/64), the twelve backward kernels (dQ and dK/dV, bf16 and
+   float32), the split in both libraries and the resize backward must all
    be there, with stack and local memory 0, so nothing spills;
 3. confusion kernel: against its plain PyTorch version (exact equality) at
    the eval batches of both slices, at a Cityscapes-sized batch in float32
    and bfloat16, and at a ragged shape with ignored and out-of-range labels;
-4. flash-attention forward kernels (float32 on the CUDA cores, bfloat16
-   on the tensor cores): against their plain version at SETR ViT-S/16's
-   shape at 640² and at SegFormer-B0 stage 1's ``Lq != Lk`` shape (each in
-   float32 and bfloat16) and at a ragged small shape, with q, k and v strided
-   views of a fused projection as the models pass them; beside it
+4. flash-attention forward kernels (on the tensor cores; bfloat16 as it
+   is, float32 split into three bf16 parts by the split kernel): against
+   their plain version at SETR ViT-S/16's shape at 640² and at SegFormer-B0
+   stage 1's ``Lq != Lk`` shape (each in float32 and bfloat16) and at a
+   ragged small shape, with q, k and v strided views of a fused projection
+   as the models pass them; in float32 a second call must give the same
+   bits and the split of q, k and v its plain version's bits; beside it
    ``F.scaled_dot_product_attention`` as a yardstick (never on the path);
 5. DeepLabV3 slice: full-width DeepLabV3-R50-d8 through ``init_model`` and
    ``inference_model`` (whole and slide inference) on four synthetic 512²
@@ -31,8 +34,9 @@ printing its own lines; any failure raises and the exit code is not 0:
    ``torch.profiler``;
 6. SETR slice: full-width SETR-PUP ViT-S/16 through ``init_model``,
    ``inference_model`` (whole) and ``SegEvaluator`` on eight synthetic 640²
-   images; exactly 12 flash launches per forward (one per layer), and the
-   device time per kernel of one batch from ``torch.profiler``;
+   images; exactly 12 flash launches per forward (one per layer) and as
+   many splits, and the device time per kernel of one batch from
+   ``torch.profiler``;
 7. cpu agreement: one 320² window of each model, on the CPU and the card;
    then SETR serving under the kvasir schedule's ``amp=True`` (the bf16
    policy): 8 forwards with exactly 12 launches of the bf16 kernel each,
@@ -60,8 +64,8 @@ printing its own lines; any failure raises and the exit code is not 0:
    ``create_train_state`` and ``make_train_step`` (SGD and StepLR of the
    kvasir schedule, drop path 0.1 from a CUDA generator) for 10 steps on
    one batch of eight synthetic 640² images; exactly 12 launches of each
-   flash kernel and of the split per step and 6 of the resize backward
-   (SETR_RESIZES), finite and falling losses,
+   flash kernel per step, 24 of the split (12 forward, 12 backward) and 6
+   of the resize backward (SETR_RESIZES), finite and falling losses,
    moved parameters and BN statistics, gradients in the aux head; ms per
    step, peak memory and the device time per kernel class of one step
    from ``torch.profiler``;
@@ -83,7 +87,7 @@ every kernel it launches), with a 96 MB write between calls so the inputs
 come from device memory, not the L2 cache;
 ``bound_ms`` is the larger of bytes over 3.35 TB/s and operations over the
 card's peak for their type (67 TFLOP/s float32 without tensor cores, 989
-TFLOP/s bfloat16); the float32 backward kernels do six bf16 products per
+TFLOP/s bfloat16); the float32 flash kernels do six bf16 products per
 float32 product, so their bound counts six times the bf16 operations at
 989 TFLOP/s, and the rows also give float32's operations at 67 TFLOP/s.
 The second-to-last line is a JSON object describing each kernel; the last
@@ -149,14 +153,14 @@ FLASH_SHAPES = [  # (N, h, Lq, Lk, d), dtype
     ((3, 1, 130, 130, 64), torch.float32),     # ragged, small
 ]
 # the device kernel behind each dtype of the forward wrapper
-FLASH_FWD_KERNEL = {torch.float32: "flash_fwd_kernel",
+FLASH_FWD_KERNEL = {torch.float32: "flash_fwd_bf16x3_kernel",
                     torch.bfloat16: "flash_fwd_sm90_kernel"}
 # the device kernels (dQ, dK/dV) behind each dtype of the backward wrappers
 FLASH_BWD_KERNEL = {
     torch.float32: ("flash_bwd_dq_bf16x3_kernel",
                     "flash_bwd_dkv_bf16x3_kernel"),
     torch.bfloat16: ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")}
-# bf16 products per float32 product in the float32 backward kernels (the
+# bf16 products per float32 product in the float32 flash kernels (the
 # parts i + j <= 2 of three-part operands)
 SPLIT_PRODUCTS = 6
 # tests/test_flash_attention.py's tolerances against the plain version
@@ -419,17 +423,32 @@ def flash_phase(device, l2_flush):
                        <= atol + rtol * ref_o.float().abs()).all()
                       and ((lse - ref_lse).abs()
                            <= 2e-6 + 1e-5 * ref_lse.abs()).all())
-        if not within:
+        split = dtype == torch.float32
+        repeat = not split or all(
+            torch.equal(a, b) for a, b in zip(
+                (o, lse), flash_attention.flash_attention_forward(*args)))
+        split_exact = not split or all(
+            torch.equal(got, flash_attention.split_bf16x3_plain(t))
+            for got, t in zip(flash_attention.split_bf16x3(q, k, v),
+                              (q, k, v)))
+        torch.cuda.synchronize()
+        if not within or not repeat or not split_exact:
             raise AssertionError(
                 f"flash kernel != plain at {(n, h, lq, lk, d)} {dtype}: max "
-                f"abs error {o_err} (o), {lse_err} (lse)")
+                f"abs error {o_err} (o), {lse_err} (lse); the same bits on "
+                f"a second call {repeat}; split = plain {split_exact}")
         del o, lse, ref_o, ref_lse
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (N, h, L, d)
         flush = l2_flush.zero_
         n_bytes = (q.element_size() * d * n * h * (2 * lq + 2 * lk)
                    + 4 * n * h * lq)
-        bound, bound_by = bound_ms(n_bytes, 4.0 * n * h * lq * lk * d,
-                                   PEAK_FLOPS[dtype])
+        work = 4.0 * n * h * lq * lk * d
+        # float32 takes six bf16 products per product on the tensor cores
+        # (the route taken: the bound), where the CUDA cores would do the
+        # float32 products at 67 TFLOP/s
+        bound, bound_by = (bound_ms(n_bytes, SPLIT_PRODUCTS * work,
+                                    PEAK_FLOPS[torch.bfloat16]) if split
+                           else bound_ms(n_bytes, work, PEAK_FLOPS[dtype]))
         row = dict(
             shape=[n, h, lq, lk, d], dtype=str(dtype).replace("torch.", ""),
             max_abs_err=o_err, lse_max_abs_err=lse_err,
@@ -445,6 +464,24 @@ def flash_phase(device, l2_flush):
             sdpa_device_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=scale), None, flush),
             bound_ms=bound, bound_by=bound_by)
+        if split:
+            def split_call():
+                return flash_attention.split_bf16x3(q, k, v)
+
+            # reads q, k and v once, writes three bf16 parts of each
+            split_bound = bound_ms(
+                (4 + 3 * 2) * (q.numel() + k.numel() + v.numel()), 0,
+                PEAK_FLOPS[torch.float32])
+            row.update(
+                repeats_bit_for_bit=repeat, split_exact=split_exact,
+                cuda_core_bound_ms=bound_ms(n_bytes, work,
+                                            PEAK_FLOPS[torch.float32])[0],
+                split_ms=cuda_ms(split_call, flush),
+                split_device_ms=device_ms(split_call, "split_bf16x3_kernel",
+                                          flush),
+                split_bound_ms=split_bound[0], split_bound_by=split_bound[1])
+            row["forward_device_ms"] = (row["device_ms"]
+                                        + row["split_device_ms"])
         print("flash kernel:", json.dumps(row), flush=True)
         rows.append(row)
         del q, k, v, qt, kt, vt, args
@@ -591,7 +628,7 @@ def slice_phase(device):
 def kernel_class(name):
     """Coarse class of a CUDA kernel name for the time breakdown."""
     low = name.lower()
-    for key, words in (("flash fwd", ("flash_fwd_kernel",)),
+    for key, words in (("flash fwd", ("flash_fwd_bf16x3_kernel",)),
                        ("flash fwd bf16", ("flash_fwd_sm90_kernel",)),
                        ("flash dq", ("flash_bwd_dq_bf16x3_kernel",)),
                        ("flash dkv", ("flash_bwd_dkv_bf16x3_kernel",)),
@@ -667,13 +704,17 @@ def serve_setr(model, amp):
     flash, other = (flash_attention.launches[k] for k in
                     (("forward_bf16", "forward") if amp
                      else ("forward", "forward_bf16")))
-    launches = dict(flash=flash, confusion=confusion.launches["logits"])
+    splits = flash_attention.launches["split_bf16x3"]
+    launches = dict(flash=flash, split=splits,
+                    confusion=confusion.launches["logits"])
     metrics = evaluator.compute_metrics()
     check_metrics(metrics)
-    if flash != SETR_LAYERS * forwards or other != 0:
+    if (flash != SETR_LAYERS * forwards or other != 0
+            or splits != (0 if amp else flash)):
         raise AssertionError(f"{flash} flash launches ({other} of the other "
-                             f"forward kernel) for {forwards} forwards of "
-                             f"{SETR_LAYERS} layers, {dtype}")
+                             f"forward kernel, {splits} splits) for "
+                             f"{forwards} forwards of {SETR_LAYERS} layers, "
+                             f"{dtype}")
     if launches["confusion"] == 0:
         raise AssertionError("the evaluator never launched the kernel")
     return x_nchw, dict(batch=list(x_nchw.shape), ms_per_batch=latency,
@@ -958,6 +999,15 @@ def flash_counts(amp=False):
     return {k: flash_attention.launches[k] for k in FLASH_KEYS[amp]}
 
 
+def per_step_launches(key):
+    """A train step's launches of a flash kernel, the split or the resize
+    backward: each flash kernel once a layer, the split twice (q, k, v for
+    the forward; q, k, v, dO for the backward), the resize backward once
+    per bilinear resize."""
+    return {"split_bf16x3": 2 * SETR_LAYERS,
+            "resize_backward": len(SETR_RESIZES)}.get(key, SETR_LAYERS)
+
+
 def schedule_cfg():
     """The kvasir schedule's optimizer, LR schedule and ``amp`` flag."""
     schedule = load_python_config(SCHEDULE)
@@ -1014,8 +1064,7 @@ def setr_train_phase(device, amp=False):
                              f"flash kernels: {other}")
 
     losses = [{k: float(v) for k, v in log.items()} for log in logs]
-    expected = {k: len(SETR_RESIZES) if k == "resize_backward"
-                else SETR_LAYERS for k in launches}
+    expected = {k: per_step_launches(k) for k in launches}
     for i, (log, counts) in enumerate(zip(losses, per_step)):
         if counts != expected:
             raise AssertionError(f"step {i + 1} launched {counts}, not "
@@ -1140,7 +1189,7 @@ def setr_train_agreement_phase(device):
     gpu_loss = one_train_step(gpu_model, x, gt, device)
     torch.cuda.synchronize()
     launches = flash_counts()
-    if any(n != SETR_LAYERS for n in launches.values()):
+    if any(n != per_step_launches(k) for k, n in launches.items()):
         raise AssertionError(f"the card's step launched {launches}")
     if abs(gpu_loss - ref_loss) > 1e-4 * abs(ref_loss):
         raise AssertionError(f"loss {gpu_loss} on the card, {ref_loss} in "
@@ -1189,43 +1238,42 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    builders = (confusion.build_library, flash_attention.build_library,
-                flash_attention.build_sm90_library,
+    builders = (confusion.build_library, flash_attention.build_sm90_library,
                 flash_attention.build_sm90_backward_library,
                 resize_backward.build_library)
     with ThreadPoolExecutor(len(builders)) as pool:  # nvcc runs outside the GIL
         libs = [build.result() for build in [pool.submit(b)
                                              for b in builders]]
-    print(f"build: confusion, flash-attention forward (float32, bf16) and "
-          f"backward, resize backward kernels in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    mma = tensor_core_instructions(libs[2])
-    print("bf16 forward kernel SASS: " + json.dumps(mma), flush=True)
-    bwd_mma = tensor_core_instructions(libs[3])
+    print(f"build: confusion, flash-attention forward and backward, resize "
+          f"backward kernels in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    mma = tensor_core_instructions(libs[1])
+    print("forward kernels SASS: " + json.dumps(mma), flush=True)
+    bwd_mma = tensor_core_instructions(libs[2])
     print("backward kernels SASS: " + json.dumps(bwd_mma), flush=True)
     if not mma["HGMMA"] or not bwd_mma["HGMMA"]:
         raise AssertionError("a tensor-core kernel library has no wgmma "
                              "(HGMMA) instruction")
-    bwd_usage = resource_usage(libs[3])
-    print("backward kernels resources: " + json.dumps(bwd_usage), flush=True)
-    # dQ and dK/dV in bf16 and float32 at d = 32, 48, 64, and the split
-    expected = {f"{kernel}<{d}>" for kernel in
-                (*FLASH_BWD_KERNEL[torch.float32],
-                 *FLASH_BWD_KERNEL[torch.bfloat16]) for d in (32, 48, 64)}
-    expected.add("split_bf16x3_kernel")
-    spills = [name for name, use in bwd_usage.items()
-              if use["LOCAL"] or use["STACK"]]
-    if not expected <= set(bwd_usage) or spills:
-        raise AssertionError(f"backward kernels: missing "
-                             f"{sorted(expected - set(bwd_usage))}, stack or "
-                             f"local memory (spills) in {spills}")
-    resize_usage = resource_usage(libs[4])
-    print("resize backward kernel resources: " + json.dumps(resize_usage),
-          flush=True)
-    if "resize_backward_kernel" not in resize_usage or any(
-            use["LOCAL"] or use["STACK"] for use in resize_usage.values()):
-        raise AssertionError(f"resize backward kernel missing or spilling: "
-                             f"{resize_usage}")
+    d_all = (32, 48, 64)
+    for what, lib, kernels in (
+            ("forward", libs[1], [f"{kernel}<{d}>" for kernel in
+                                  FLASH_FWD_KERNEL.values() for d in d_all]
+             + ["split_bf16x3_kernel"]),
+            ("backward", libs[2], [f"{kernel}<{d}>" for kernel in
+                                   (*FLASH_BWD_KERNEL[torch.float32],
+                                    *FLASH_BWD_KERNEL[torch.bfloat16])
+                                   for d in d_all]
+             + ["split_bf16x3_kernel"]),
+            ("resize backward", libs[3], ["resize_backward_kernel"])):
+        usage = resource_usage(lib)
+        print(f"{what} kernels resources: " + json.dumps(usage), flush=True)
+        spills = [name for name, use in usage.items()
+                  if use["LOCAL"] or use["STACK"]]
+        if not set(kernels) <= set(usage) or spills:
+            raise AssertionError(f"{what} kernels: missing "
+                                 f"{sorted(set(kernels) - set(usage))}, "
+                                 f"stack or local memory (spills) in "
+                                 f"{spills}")
 
     l2_flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
     rows = kernel_phase(device, l2_flush)
@@ -1316,19 +1364,28 @@ def main():
     }, {
         "name": "flash_attention_forward",
         "route": "cuda",
-        "source": "image_segmentation_lab_tpu_torch/csrc/flash_attention.cu",
+        "source": "image_segmentation_lab_tpu_torch/csrc/"
+                  "flash_attention_sm90.cu",
         "replaces": "image_segmentation_lab_tpu/ops/pallas/"
                     "flash_attention.py:61",
-        "launches": setr_launches["flash"],
+        # the float32 serving phase and the float32 train steps
+        "launches": setr_launches["flash"] + train_launches["forward"],
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                            if r["dtype"] == "float32"),
         "ms": setr_row["ms"],
         "device_ms": setr_row["device_ms"],
         "plain_ms": setr_row["plain_ms"],
+        # the bound of the route taken, six bf16 tensor-core products per
+        # float32 product; beside it float32's products on the CUDA cores
         "bound_ms": setr_row["bound_ms"],
         "bound_by": setr_row["bound_by"],
+        "bound_route": "6 bf16 tensor-core products per float32 product, "
+                       "989 TFLOP/s",
+        "cuda_core_bound_ms": setr_row["cuda_core_bound_ms"],
+        "split_device_ms": setr_row["split_device_ms"],
         "library_ms": setr_row["sdpa_ms"],
         "library_device_ms": setr_row["sdpa_device_ms"],
+        "sass": mma,
     }, {
         "name": "flash_attention_forward_bf16",
         "route": "cuda",
@@ -1350,14 +1407,19 @@ def main():
         "library_device_ms": setr_bf16_row["sdpa_device_ms"],
         "sass": mma,
     }] + backward_entries(torch.float32, train_launches) + [{
-        # the float32 backward's operand split, part of the K4/K5 port
+        # the float32 operand split of the forward (q, k, v) and the
+        # backward (q, k, v, dO), part of the K3-K5 port; one kernel in
+        # sm90_bf16x3.cuh, built into both libraries; the row is the
+        # backward's four operands at SETR's shape
         "name": "split_bf16x3",
         "route": "cuda",
-        "source": source,
+        "source": "image_segmentation_lab_tpu_torch/csrc/sm90_bf16x3.cuh",
         "replaces": f"{flash_py}:156",
-        "also_replaces": f"{flash_py}:187",
-        "launches": train_launches["split_bf16x3"],
-        "max_abs_err": 0.0,  # phase 8 raises unless it gives plain's bits
+        "also_replaces": [f"{flash_py}:187", f"{flash_py}:61"],
+        # the float32 serving phase and train steps (forward and backward)
+        "launches": setr_launches["split"] + train_launches["split_bf16x3"],
+        "max_abs_err": 0.0,  # phases 4 and 8 raise unless it gives plain's
+                             # bits
         "ms": f32_rows[0]["split_ms"],
         "device_ms": f32_rows[0]["split_device_ms"],
         "plain_ms": f32_rows[0]["split_plain_ms"],

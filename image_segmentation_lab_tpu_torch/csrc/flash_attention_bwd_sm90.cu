@@ -20,18 +20,12 @@
 //     they become the A operand of the next product, and the outputs are
 //     written in bf16, as in the TPU kernels;
 //   * float32 (flash_bwd_dq_bf16x3_kernel, flash_bwd_dkv_bf16x3_kernel),
-//     three parts: each float32 operand x is split as x = hi + mid + lo,
-//     hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), exact for
-//     normal float32 (8 + 8 + 8 significant bits; the subtractions are
-//     exact), and a product A B becomes the six bf16 products A_i B_j with
-//     i + j <= 2, smallest terms first.  The three terms left out are about
-//     2^-24 of A B, float32's own rounding level: XLA's six-pass bf16 scheme
-//     for float32 dots at precision=HIGHEST.  split_bf16x3_kernel writes q,
-//     k, v and dO as three contiguous bf16 planes each, once per backward
-//     call for both kernels; P and dS are split in registers, and the
-//     outputs are written in float32.  bf16 and not TF32: wgmma reads TF32
-//     operands K-major only, and three of the five products (dS K, P^T dO,
-//     dS^T Q) read B MN-major, which only the 16-bit types transpose.
+//     three parts: each float32 operand is split into three bf16 parts and
+//     each product taken as six bf16 products (sm90_bf16x3.cuh, shared with
+//     the float32 forward).  split_bf16x3_kernel writes q, k, v and dO as
+//     three contiguous bf16 planes each, once per backward call for both
+//     kernels; P and dS are split in registers, and the outputs are written
+//     in float32.
 // P and dS take the plain version's float32 steps (s * scale, - lse, expf;
 // no fused multiply-add): a bf16 rounding of dS turns a last-bit
 // difference in P into a whole bf16 step of dS, so the kernels keep to the
@@ -60,7 +54,8 @@
 // where the CUDA cores' 67 TFLOP/s would take 0.70 and 0.94 ms.  All are
 // bound by operations.  Each kernel also takes N H L^2 = 1.23e8
 // exponentials (about 0.03 ms on the SFUs).  The design is the bf16
-// forward's (flash_attention_sm90.cu), from sm90_wgmma.cuh:
+// forward's (flash_attention_sm90.cu), from sm90_wgmma.cuh and
+// sm90_bf16x3.cuh:
 //   * a CTA has two warpgroups of 128 threads, each owning 64 rows (128 per
 //     CTA) of the side it writes;
 //   * dQ (flash_bwd_dq_*): Q and dO stay in shared memory; K and V tiles
@@ -97,6 +92,7 @@
 
 #include <type_traits>
 
+#include "sm90_bf16x3.cuh"
 #include "sm90_wgmma.cuh"
 
 namespace {
@@ -107,10 +103,9 @@ constexpr int kBlockM = 128;  // rows a CTA owns, 64 per warpgroup
 constexpr int kBlockN = 64;   // rows of a streamed tile
 constexpr int kThreads = 256;
 constexpr int kStages = 2;
-constexpr int kOwnBytes = kBlockM * kRowBytes;   // 16 KB, each of two
-constexpr int kTileBytes = kBlockN * kRowBytes;  // 8 KB, each of two
-constexpr int kRowsBytes = 2 * kBlockN * 4;      // a tile's lse and delta
-constexpr int kSplitParts = 3;                   // the float32 kernels'
+constexpr int kOwnBytes = kBlockM * kRowBytes;  // 16 KB, each of two
+constexpr int kRowsBytes = 2 * kBlockN * 4;     // a tile's lse and delta
+static_assert(kBlockN * kRowBytes == kTileBytes, "8 KB tiles, each of two");
 
 // +1024: the swizzle needs 1024-byte aligned tiles
 template <int kParts>
@@ -126,11 +121,6 @@ constexpr int dkv_smem_bytes() {
 // the output type: bf16 for bf16 inputs, float32 for split float32 ones
 template <int kParts>
 using Out = std::conditional_t<kParts == 1, __nv_bfloat16, float>;
-
-struct Strides {
-  int64_t n, l, h;  // element strides of batch, position and head
-  int64_t part;     // elements from one bf16 part to the next (split only)
-};
 
 // 4 bytes global -> shared; zeros when !valid (src is then not read)
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -213,104 +203,6 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[32],
             __floats2bfloat162_rn(x, y);
     }
   }
-}
-
-// d = sum of A_i B_j^T over D for the parts i + j < kParts, smallest terms
-// (largest i + j) first: A_i is 64 K-major rows at a + i a_part, B_j 64
-// K-major rows at b + j b_part; D / 16 steps of 16 along the head dim,
-// each 32 bytes on in the swizzled rows; 8-row groups 1024 bytes apart
-template <int D, int kParts>
-__device__ __forceinline__ void product_over_d(float (&d)[32], uint32_t a,
-                                               uint32_t a_part, uint32_t b,
-                                               uint32_t b_part) {
-#pragma unroll
-  for (int s = kParts - 1; s >= 0; --s)
-#pragma unroll
-    for (int i = s; i >= 0; --i)
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss(d, smem_desc(a + i * a_part + kk * 32, 0, 1024),
-                 smem_desc(b + (s - i) * b_part + kk * 32, 0, 1024),
-                 s != kParts - 1 || i != s || kk);
-}
-
-// d += sum of A_i B_j over 64 rows for the parts i + j < kParts, smallest
-// terms first: A_i as four 16-deep register fragments, B_j 64 MN-major rows
-// at b + j b_part (16 rows, 2048 bytes, a step), transposed by the
-// instruction
-template <int kParts>
-__device__ __forceinline__ void product_over_rows(
-    float (&d)[32], const uint32_t (&a)[kParts][4][4], uint32_t b,
-    uint32_t b_part) {
-#pragma unroll
-  for (int s = kParts - 1; s >= 0; --s)
-#pragma unroll
-    for (int i = s; i >= 0; --i)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(d, a[i][kk],
-                 smem_desc(b + (s - i) * b_part + kk * 16 * kRowBytes,
-                           kTileBytes, 1024));
-}
-
-// a 64 x 64 accumulator as the A fragments of four 16-deep register steps
-// in kParts bf16 parts: part p is the bf16 rounding of what the parts
-// before it leave of each value (with one part, the value rounded to bf16)
-template <int kParts>
-__device__ __forceinline__ void to_split_frags(
-    const float (&d)[32], uint32_t (&frag)[kParts][4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float x = d[8 * kk + 2 * r], y = d[8 * kk + 2 * r + 1];
-#pragma unroll
-      for (int p = 0; p < kParts; ++p) {
-        const __nv_bfloat162 part = __floats2bfloat162_rn(x, y);
-        frag[p][kk][r] = *reinterpret_cast<const uint32_t*>(&part);
-        if (p + 1 < kParts) {
-          x = __fsub_rn(x, __low2float(part));
-          y = __fsub_rn(y, __high2float(part));
-        }
-      }
-    }
-}
-
-// acc += sum of A_i B_j (product_over_rows).  With one part straight into
-// acc; with split operands the tile's terms are summed from zero in `tile`
-// and then added to acc in float32: the tensor cores' accumulation
-// truncates, and an accumulator that takes thousands of terms over a long
-// side (25600 queries: 400 tiles of 24 steps) drifts past float32's
-// tolerance
-template <int kParts>
-__device__ __forceinline__ void add_product_over_rows(
-    float (&acc)[32], float (&tile)[32], const uint32_t (&a)[kParts][4][4],
-    uint32_t b, uint32_t b_part) {
-  float(&d)[32] = kParts == 1 ? acc : tile;
-  if constexpr (kParts > 1) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) tile[i] = 0.f;
-  }
-  fence_regs(d);
-  wgmma_fence();
-  product_over_rows<kParts>(d, a, b, b_part);
-  wgmma_commit();
-  wgmma_wait_all();
-  fence_regs(d);
-  if constexpr (kParts > 1) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] += tile[i];
-  }
-}
-
-// a shared-memory address the compiler cannot see through, with split
-// operands: it would otherwise keep the 24 loop-invariant descriptors of
-// the owned tiles in registers across the tile loop, and spill; they cost
-// a few integer operations a tile to rebuild
-template <int kParts>
-__device__ __forceinline__ uint32_t per_tile(uint32_t addr) {
-  if constexpr (kParts > 1) asm volatile("" : "+r"(addr));
-  return addr;
 }
 
 // the dQ kernel's body, for operands of kParts bf16 parts
@@ -633,48 +525,6 @@ flash_bwd_dkv_bf16x3_kernel(const __nv_bfloat16* __restrict__ q,
                            heads, lq, lk, qs, ks, vs, dos, scale);
 }
 
-// The split: blockIdx.y picks one of q, k, v, dO; a thread splits 4
-// neighbouring values of one (batch, position, head) row, read through the
-// tensor's strides, into its three contiguous bf16 planes.  Elementwise,
-// bound by bytes: 4 bytes read and 6 written a value.
-constexpr int kSplitThreads = 256;
-
-struct SplitArgs {
-  const float* src[4];
-  Strides s[4];
-  __nv_bfloat16* dst[4];  // (3, N, len, H, D) contiguous
-  int len[4];
-};
-
-__global__ void __launch_bounds__(kSplitThreads)
-split_bf16x3_kernel(SplitArgs a, int n, int heads, int d) {
-  const int t = blockIdx.y;
-  const int quads = d / 4;  // threads a row
-  const int per_block = kSplitThreads / quads;
-  const int len = a.len[t];
-  const int rows = n * len * heads;
-  const int row = blockIdx.x * per_block + threadIdx.x / quads;
-  if (threadIdx.x >= per_block * quads || row >= rows) return;
-  const int c = threadIdx.x % quads * 4;
-  const int h = row % heads, l = row / heads % len, b = row / heads / len;
-  const float* src = a.src[t] + b * a.s[t].n + l * a.s[t].l + h * a.s[t].h + c;
-  __nv_bfloat16* dst = a.dst[t] + (int64_t)row * d + c;
-  const int64_t plane = (int64_t)rows * d;
-  float x[4] = {src[0], src[1], src[2], src[3]};
-#pragma unroll
-  for (int p = 0; p < kSplitParts; ++p) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
-    *reinterpret_cast<uint2*>(dst + p * plane) =
-        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                   *reinterpret_cast<const uint32_t*>(&hi));
-    x[0] = __fsub_rn(x[0], __low2float(lo));
-    x[1] = __fsub_rn(x[1], __high2float(lo));
-    x[2] = __fsub_rn(x[2], __low2float(hi));
-    x[3] = __fsub_rn(x[3], __high2float(hi));
-  }
-}
-
 // set the kernel's dynamic shared-memory limit, launch, and return the
 // launch's cudaError_t
 template <typename Kernel, typename... Args>
@@ -776,13 +626,11 @@ void read_strides(const int64_t* strides, Strides* s) {
     s[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2], 0};
 }
 
-// the strides of split q, k, v and dO: three contiguous (N, len, H, D)
-// planes each
+// the strides of split q, k, v and dO
 void plane_strides(int n, int heads, int lq, int lk, int d, Strides* s) {
-  const int64_t row = (int64_t)heads * d;
   const int lens[4] = {lq, lk, lk, lq};
   for (int t = 0; t < 4; ++t)
-    s[t] = Strides{lens[t] * row, row, d, n * lens[t] * row};
+    s[t] = sm90::plane_strides(n, lens[t], heads, d);
 }
 
 }  // namespace
@@ -829,25 +677,11 @@ int split_bf16x3_f32(const void* q, const void* k, const void* v,
                      const void* dout, void* q_parts, void* k_parts,
                      void* v_parts, void* do_parts, int n, int heads, int lq,
                      int lk, int d, const int64_t* strides, void* stream) {
-  if (d % 4 || d > 4 * kSplitThreads) return (int)cudaErrorInvalidValue;
-  SplitArgs a;
   const void* src[4] = {q, k, v, dout};
   void* dst[4] = {q_parts, k_parts, v_parts, do_parts};
   const int lens[4] = {lq, lk, lk, lq};
-  Strides s[4];
-  read_strides(strides, s);
-  for (int t = 0; t < 4; ++t) {
-    a.src[t] = static_cast<const float*>(src[t]);
-    a.s[t] = s[t];
-    a.dst[t] = static_cast<__nv_bfloat16*>(dst[t]);
-    a.len[t] = lens[t];
-  }
-  const int per_block = kSplitThreads / (d / 4);
-  const int longest = lq > lk ? lq : lk;
-  const dim3 grid((n * longest * heads + per_block - 1) / per_block, 4);
-  split_bf16x3_kernel<<<grid, kSplitThreads, 0, (cudaStream_t)stream>>>(
-      a, n, heads, d);
-  return (int)cudaGetLastError();
+  return sm90::split_bf16x3(4, src, dst, lens, n, heads, d, strides,
+                            (cudaStream_t)stream);
 }
 
 // q, k, v and dO as split_bf16x3_f32 writes them; float32 outputs

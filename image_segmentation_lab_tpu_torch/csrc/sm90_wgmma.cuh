@@ -10,8 +10,9 @@
 // accumulator holds 32 values a thread: d[4 b + e] is row
 // 16 warp + lane / 4 + 8 (e / 2), column 8 b + 2 (lane % 4) + e % 2.  The
 // bf16 A fragment of a 16-deep register step is the same layout over two
-// 8-column blocks, so an accumulator packed with pack_bf16 (two columns a
-// register) is the A operand of the next product without a shuffle.
+// 8-column blocks, so an accumulator rounded to bf16, two columns a
+// register (to_split_frags, sm90_bf16x3.cuh), is the A operand of the next
+// product without a shuffle.
 
 #pragma once
 
@@ -120,22 +121,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "}\n"
       : WGMMA_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// a 64 x 64 accumulator, rounded to bf16, as the A fragments of four
-// 16-deep register steps
-__device__ __forceinline__ void to_a_frags(const float (&d)[32],
-                                           uint32_t (&frag)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      frag[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
 }  // namespace sm90

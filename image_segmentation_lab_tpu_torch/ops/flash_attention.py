@@ -18,17 +18,17 @@ saved lse.
 
 For CPU tensors each wrapper computes the plain PyTorch version
 (``attention_plain``, ``attention_backward_plain``, ``split_bf16x3_plain``);
-for CUDA tensors it launches its kernel or raises.  The forward has two:
-float32 on the CUDA cores (``csrc/flash_attention.cu``) and bfloat16 on the
-tensor cores (``csrc/flash_attention_sm90.cu``: wgmma, whose rows must
-start on 16 bytes).  The backward runs on the tensor cores in both types
-(``csrc/flash_attention_bwd_sm90.cu``): bfloat16 as it is, float32 split
+for CUDA tensors it launches its kernel or raises.  Forward
+(``csrc/flash_attention_sm90.cu``) and backward
+(``csrc/flash_attention_bwd_sm90.cu``) run on the tensor cores (wgmma) in
+both types: bfloat16 as it is (rows must start on 16 bytes), float32 split
 into three bf16 parts (hi + mid + lo, exact) by ``split_bf16x3``, one launch
-for q, k, v and dO per backward call, with each float32 product taken as
-six bf16 products.  Each source is built at first use by
-``ops/nvcc_build.py``, and each kernel counts its own launches.  The
-kernels read q, k, v and dO through their strides (the head dim must be
-contiguous), so the slices of a fused qkv projection need no copy.
+for q, k and v per forward call and one for q, k, v and dO per backward
+call, with each float32 product taken as six bf16 products.  Each source is
+built at first use by ``ops/nvcc_build.py``, and each kernel counts its own
+launches.  The kernels (and the split) read q, k, v and dO through their
+strides (the head dim must be contiguous), so the slices of a fused qkv
+projection need no copy.
 """
 
 from __future__ import annotations
@@ -47,44 +47,35 @@ _MAX_GRID_YZ = 65535  # heads and batch are the kernels' grid y and z
 launches = {"forward": 0, "forward_bf16": 0, "backward_dq": 0,
             "backward_dkv": 0, "backward_dq_bf16": 0, "backward_dkv_bf16": 0,
             "split_bf16x3": 0}
-SPLIT_PARTS = 3  # bf16 parts of a float32 operand in the backward kernels
-_lib = None
+SPLIT_PARTS = 3  # bf16 parts of a float32 operand in the kernels
 _sm90_lib = None
 _sm90_bwd_lib = None
 
 
-def _load_forward(source, entry, error_string):
-    lib = load_library(source)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # q, k, v, o, lse, n, h, lq, lk, d, strides, scale, stream
-    fn = getattr(lib, entry)
-    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
-                   ctypes.c_float, ptr]
-    fn.restype = i32
-    getattr(lib, error_string).argtypes = [i32]
-    getattr(lib, error_string).restype = ctypes.c_char_p
-    return lib
-
-
-def build_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the float32 forward
-    kernel."""
-    global _lib
-    if _lib is None:
-        _lib = _load_forward("flash_attention.cu",
-                             "flash_attention_forward_f32",
-                             "flash_attention_error_string")
-    return _lib
-
-
 def build_sm90_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the bfloat16 tensor-core
-    forward kernel."""
+    """Compile (once per source hash) and load the tensor-core forward
+    kernels (bfloat16, and float32 as split bf16 parts) and the split of
+    q, k and v."""
     global _sm90_lib
     if _sm90_lib is None:
-        _sm90_lib = _load_forward("flash_attention_sm90.cu",
-                                  "flash_attention_forward_sm90_bf16",
-                                  "flash_attention_sm90_error_string")
+        lib = load_library("flash_attention_sm90.cu")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, o, lse, n, h, lq, lk, d, [strides,] scale, stream;
+        # float32 takes the split planes, which are contiguous, and no
+        # strides
+        head = [ptr] * 5 + [i32] * 5
+        lib.flash_attention_forward_sm90_bf16.argtypes = head + [ptr, f32,
+                                                                 ptr]
+        lib.flash_attention_forward_sm90_f32.argtypes = head + [f32, ptr]
+        # q, k, v, their three planes, n, h, lq, lk, d, strides, stream
+        lib.split_bf16x3_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr, ptr]
+        for fn in (lib.flash_attention_forward_sm90_bf16,
+                   lib.flash_attention_forward_sm90_f32,
+                   lib.split_bf16x3_f32):
+            fn.restype = i32
+        lib.flash_attention_sm90_error_string.argtypes = [i32]
+        lib.flash_attention_sm90_error_string.restype = ctypes.c_char_p
+        _sm90_lib = lib
     return _sm90_lib
 
 
@@ -233,18 +224,23 @@ def _forward(q, k, v, scale):
     lse = torch.empty((n, h, lq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), n, h, lq, lk, d, _strides(q, k, v), float(scale))
+    lib = build_sm90_library()
     if q.dtype == torch.float32:
-        lib = build_library()
-        _launch(lib.flash_attention_forward_f32,
-                lib.flash_attention_error_string, q, args)
+        # the planes live until the kernel has read them; the backward
+        # splits anew
+        planes = split_bf16x3(q, k, v)
+        _launch(lib.flash_attention_forward_sm90_f32,
+                lib.flash_attention_sm90_error_string, q,
+                (*(t.data_ptr() for t in planes), o.data_ptr(),
+                 lse.data_ptr(), n, h, lq, lk, d, float(scale)))
         launches["forward"] += 1
         return o, lse
     _check_row_alignment(q, k, v)
-    lib = build_sm90_library()
     _launch(lib.flash_attention_forward_sm90_bf16,
-            lib.flash_attention_sm90_error_string, q, args)
+            lib.flash_attention_sm90_error_string, q,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), n, h, lq, lk, d, _strides(q, k, v),
+             float(scale)))
     launches["forward_bf16"] += 1
     return o, lse
 
@@ -293,31 +289,37 @@ def _check_backward(q, k, v, do, lse, delta):
                              f"{t.dtype}")
 
 
-def split_bf16x3(q, k, v, do):
-    """The bf16 parts of float32 q, k, v and dO, each ``(3, *t.shape)``
-    contiguous as ``split_bf16x3_plain`` gives them: one launch of the split
-    kernel for all four."""
+def split_bf16x3(q, k, v, do=None):
+    """The bf16 parts of float32 q, k, v and (for the backward) dO, each
+    ``(3, *t.shape)`` contiguous as ``split_bf16x3_plain`` gives them: one
+    launch of the split kernel for all of them, from the forward's library
+    for q, k and v, from the backward's with dO."""
     _check(q, k, v)
-    if q.dtype != torch.float32 or (do.shape, do.dtype, do.device) != (
-            q.shape, q.dtype, q.device):
+    operands = (q, k, v) if do is None else (q, k, v, do)
+    if q.dtype != torch.float32 or (do is not None and (
+            do.shape, do.dtype, do.device) != (q.shape, q.dtype, q.device)):
         raise ValueError(f"the split takes float32 q, k, v and a dO like q, "
-                         f"got {q.dtype} q {tuple(q.shape)} and {do.dtype} "
-                         f"dO {tuple(do.shape)}")
+                         f"got {q.dtype} q {tuple(q.shape)} and dO "
+                         f"{None if do is None else (do.dtype, do.shape)}")
     if q.device.type == "cpu":
-        return [split_bf16x3_plain(t) for t in (q, k, v, do)]
-    _check_kernel_inputs(q, k, v, do)
+        return [split_bf16x3_plain(t) for t in operands]
+    _check_kernel_inputs(*operands)
     if q.numel() >= 2 ** 31 or k.numel() >= 2 ** 31:
         raise ValueError("the split kernel indexes rows with 32-bit ints")
     planes = [torch.empty((SPLIT_PARTS, *t.shape), dtype=torch.bfloat16,
-                          device=t.device) for t in (q, k, v, do)]
+                          device=t.device) for t in operands]
     if k.numel() == 0:  # (and so q, which shares N, h and d)
         return planes
     n, lq, h, d = q.shape
-    lib = build_sm90_backward_library()
-    _launch(lib.split_bf16x3_f32,
-            lib.flash_attention_backward_sm90_error_string, q,
-            (*(t.data_ptr() for t in (q, k, v, do, *planes)), n, h, lq,
-             k.shape[1], d, _strides(q, k, v, do)))
+    if do is None:
+        lib = build_sm90_library()
+        error_string = lib.flash_attention_sm90_error_string
+    else:
+        lib = build_sm90_backward_library()
+        error_string = lib.flash_attention_backward_sm90_error_string
+    _launch(lib.split_bf16x3_f32, error_string, q,
+            (*(t.data_ptr() for t in (*operands, *planes)), n, h, lq,
+             k.shape[1], d, _strides(*operands)))
     launches["split_bf16x3"] += 1
     return planes
 

@@ -221,8 +221,7 @@ def test_cpu_runs_the_plain_version_and_counts_nothing(monkeypatch):
     counts = dict.fromkeys(flash_attention.launches, 0)
     monkeypatch.setattr(flash_attention, "launches", dict(counts))
     monkeypatch.setattr(resize_backward, "launches", {"resize_backward": 0})
-    for module, builder in ((flash_attention, "build_library"),
-                            (flash_attention, "build_sm90_library"),
+    for module, builder in ((flash_attention, "build_sm90_library"),
                             (flash_attention, "build_sm90_backward_library"),
                             (resize_backward, "build_library")):
         monkeypatch.setattr(module, builder,
@@ -238,6 +237,7 @@ def test_cpu_runs_the_plain_version_and_counts_nothing(monkeypatch):
         assert q.grad is not None and q.grad.dtype == dtype
         assert x.grad is not None and x.grad.dtype == dtype
     flash_attention.split_bf16x3(*(q.detach().float(),) * 4)
+    flash_attention.split_bf16x3(*(q.detach().float(),) * 3)
     assert flash_attention.launches == counts
     assert resize_backward.launches == {"resize_backward": 0}
     with pytest.raises(ValueError, match="force"):
@@ -307,6 +307,51 @@ def test_six_bf16_products_keep_float32_accuracy():
                            (plain, exact, True), (one_pass, exact, False)):
         close = [torch.allclose(g.double(), r.double(), **F32_GRAD)
                  for g, r in zip(got, ref)]
+        assert all(close) if want else not any(close)
+
+
+def tiled_forward(q, k, v, scale, product, tile=64):
+    """``(o, lse)`` as the forward kernels take them: 64-key tiles, an
+    online softmax (running max m and sum l per row, s·scale, exp), each
+    tile's PV product summed from zero and then added to the rescaled
+    accumulator, o = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30))."""
+    n, lq, h, d = q.shape
+    m = torch.full((n, h, lq), -1e30, dtype=q.dtype)
+    l = torch.zeros((n, h, lq), dtype=q.dtype)
+    acc = torch.zeros((n, h, lq, d), dtype=q.dtype)
+    for k0 in range(0, k.shape[1], tile):
+        kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        s = product("nlhd,nshd->nhls", q, kt) * scale
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + product("nhls,nshd->nhld", p, vt)
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return (acc / l[..., None]).transpose(1, 2), m + torch.log(l)
+
+
+def test_six_bf16_products_keep_float32_forward_accuracy():
+    """The forward kernels' arithmetic (``tiled_forward``) with S = Q·Kᵀ and
+    each tile's P·V taken as six bf16-part products agrees with the same
+    arithmetic in float64 at the card's float32 forward gate (o and lse,
+    atol 2e-6 / rtol 1e-5), and so does ``attention_plain``; one bf16
+    product (hi * hi) does not."""
+    N, Lq, Lk, h, d = 2, 150, 200, 2, 64  # four key tiles, the last ragged
+    rng = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(rng.randn(N, L, h, d).astype(np.float32))
+               for L in (Lq, Lk, Lk))
+    scale = d ** -0.5
+    exact = tiled_forward(q.double(), k.double(), v.double(), scale,
+                          torch.einsum)
+    split = tiled_forward(q, k, v, scale, split_product)
+    plain = flash_attention.attention_plain(q, k, v, scale)
+    one_pass = tiled_forward(
+        q, k, v, scale, lambda eq, a, b: split_product(eq, a, b, parts=1))
+    for got, want in ((split, True), (plain, True), (one_pass, False)):
+        close = [torch.allclose(g.double(), r, **F32)
+                 for g, r in zip(got, exact)]
         assert all(close) if want else not any(close)
 
 

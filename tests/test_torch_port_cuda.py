@@ -117,7 +117,8 @@ def test_cuda_tensor_without_library_raises(cuda, monkeypatch, tmp_path):
 
 # (N, h, Lq, Lk, d), dtype: SETR ViT-S/16 at 640² (batch 8), SegFormer-B0
 # stage 1 at 640² (Lq != Lk), ragged and small cases; Lk = 65 leaves 63 of
-# the last tile's 64 keys masked, Lk = 1 makes o equal v
+# the last tile's 64 keys masked, Lk = 1 makes o equal v; float32 runs the
+# tensor-core kernel on q, k, v split into three bf16 parts
 FLASH_CASES = {
     "setr_f32": ((8, 6, 1601, 1601, 64), torch.float32),
     "setr_bf16": ((8, 6, 1601, 1601, 64), torch.bfloat16),
@@ -126,6 +127,8 @@ FLASH_CASES = {
     "d48": ((1, 2, 300, 300, 48), torch.float32),
     "masked_tail": ((2, 3, 63, 65, 32), torch.float32),
     "one_key_bf16": ((2, 2, 70, 1, 64), torch.bfloat16),
+    "one_key_f32": ((2, 2, 70, 1, 64), torch.float32),
+    "fit_128_contiguous_f32": ((2, 3, 128, 128, 64), torch.float32),
 }
 FLASH_TOL = {torch.float32: dict(atol=2e-6, rtol=1e-5),
              torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -155,6 +158,29 @@ def test_flash_kernel_matches_plain(cuda, name):
     assert_flash_matches_plain(*flash_inputs(name, cuda))
 
 
+@pytest.mark.parametrize("name", ["setr_f32", "masked_tail", "mit_f32"])
+def test_float32_forward_repeats_bit_for_bit(cuda, name):
+    """Each output row has one owner and no atomics: two calls on the same
+    inputs give the same bits."""
+    q, k, v = flash_inputs(name, cuda)
+    with torch.no_grad():
+        first = flash_attention.flash_attention_forward(q, k, v, 0.125)
+        again = flash_attention.flash_attention_forward(q, k, v, 0.125)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_float32_forward_takes_rows_off_16_bytes(cuda):
+    """The float32 kernel reads the split planes, which are contiguous:
+    rows that start 4 bytes in need no alignment, unlike bf16's."""
+    q, k, v = flash_inputs("fit_128_contiguous_f32", cuda)
+    padded = torch.zeros(*v.shape[:-1], v.shape[-1] + 2, device=cuda)
+    padded[..., 1:-1] = v
+    off = padded[..., 1:-1]  # rows start 4 bytes in
+    assert off.data_ptr() % 16 and off.stride(1) % 4
+    assert_flash_matches_plain(q, k, off)
+
+
 def test_flash_kernel_reads_qkv_slices_in_place(cuda):
     """The ViT passes q, k and v as strided views of the qkv projection."""
     n, lq, h, d = 2, 197, 6, 64
@@ -167,9 +193,10 @@ def test_flash_kernel_reads_qkv_slices_in_place(cuda):
 
 def test_multihead_attention_launches_the_kernel_unless_forced_plain(
         cuda, monkeypatch):
-    """At SETR's shape and qkv layout: the default runs the kernel once,
-    ``force="plain"`` runs no kernel, and the two agree."""
-    monkeypatch.setattr(flash_attention, "launches", {"forward": 0})
+    """At SETR's shape and qkv layout: the default runs the kernel (and the
+    split) once, ``force="plain"`` runs no kernel, and the two agree."""
+    monkeypatch.setattr(flash_attention, "launches",
+                        {"forward": 0, "split_bf16x3": 0})
     n, lq, h, d = 8, 1601, 6, 64
     g = torch.Generator(device="cpu").manual_seed(6)
     qkv = torch.randn(n, lq, 3 * h * d, generator=g).to(cuda)
@@ -178,19 +205,22 @@ def test_multihead_attention_launches_the_kernel_unless_forced_plain(
         out = attention.multihead_attention(q, k, v, d ** -0.5)
         plain = attention.multihead_attention(q, k, v, d ** -0.5,
                                               force="plain")
-    assert flash_attention.launches == {"forward": 1}
+    assert flash_attention.launches == {"forward": 1, "split_bf16x3": 1}
     torch.testing.assert_close(out, plain, **FLASH_TOL[torch.float32])
 
 
 def test_flash_counts_its_launches(cuda, monkeypatch):
+    """A float32 forward call splits q, k and v once and launches the
+    kernel once; the plain version counts nothing."""
     monkeypatch.setattr(flash_attention, "launches",
-                        {"forward": 0, "forward_bf16": 0})
+                        {"forward": 0, "forward_bf16": 0, "split_bf16x3": 0})
     q, k, v = flash_inputs("ragged_130", cuda)
     with torch.no_grad():
         for _ in range(3):
             flash_attention.flash_attention_forward(q, k, v, 0.125)
         flash_attention.attention_plain(q, k, v, 0.125)
-    assert flash_attention.launches == {"forward": 3, "forward_bf16": 0}
+    assert flash_attention.launches == {"forward": 3, "forward_bf16": 0,
+                                        "split_bf16x3": 3}
 
 
 # (N, h, Lq, Lk, d) of the bf16 tensor-core kernel (128 query rows and 64
@@ -384,9 +414,10 @@ BWD_CASES = {
 # the launch counter of each backward kernel, by dtype
 BWD_KEYS = {torch.float32: ("backward_dq", "backward_dkv"),
             torch.bfloat16: ("backward_dq_bf16", "backward_dkv_bf16")}
-# float32 dQ and dK/dV wrappers called without the split planes each split
-# q, k, v and dO themselves
-BWD_SPLITS = {torch.float32: 2, torch.bfloat16: 0}
+# the float32 forward splits q, k and v, and the float32 dQ and dK/dV
+# wrappers called without the split planes each split q, k, v and dO
+# themselves
+BWD_SPLITS = {torch.float32: 3, torch.bfloat16: 0}
 
 
 def bwd_tol(ref):
@@ -520,7 +551,8 @@ def test_float32_backward_takes_rows_off_16_bytes(cuda):
 def test_grad_through_multihead_attention_launches_each_kernel_once(
         cuda, monkeypatch):
     """At SETR's qkv layout: one forward and one backward through the
-    Function launch K3, the split, K4 and K5 once each and agree with
+    Function launch K3, K4 and K5 once each and the split twice (q, k, v
+    for the forward; q, k, v, dO for the backward), and agree with
     autograd through the plain version."""
     monkeypatch.setattr(flash_attention, "launches",
                         dict.fromkeys(flash_attention.launches, 0))
@@ -539,14 +571,14 @@ def test_grad_through_multihead_attention_launches_each_kernel_once(
             grads[force], = torch.autograd.grad(out, leaf, do)
     assert flash_attention.launches == {
         "forward": 1, "forward_bf16": 0, "backward_dq": 1, "backward_dkv": 1,
-        "backward_dq_bf16": 0, "backward_dkv_bf16": 0, "split_bf16x3": 1}
+        "backward_dq_bf16": 0, "backward_dkv_bf16": 0, "split_bf16x3": 2}
     torch.testing.assert_close(grads[None], grads["plain"],
                                **bwd_tol(grads["plain"]))
 
 
 def test_flash_backward_counts_its_launches(cuda, monkeypatch):
-    """float32 under its own keys (one split a backward call), bf16 under
-    ``*_bf16``; the plain versions count nothing."""
+    """float32 under its own keys (one split a forward and a backward
+    call), bf16 under ``*_bf16``; the plain versions count nothing."""
     monkeypatch.setattr(flash_attention, "launches",
                         dict.fromkeys(flash_attention.launches, 0))
     for name in ("ragged_130", "ragged_130_bf16"):
@@ -562,7 +594,7 @@ def test_flash_backward_counts_its_launches(cuda, monkeypatch):
             flash_attention.split_bf16x3_plain(q.float())
     assert flash_attention.launches == {
         "forward": 1, "forward_bf16": 1, "backward_dq": 2, "backward_dkv": 2,
-        "backward_dq_bf16": 2, "backward_dkv_bf16": 2, "split_bf16x3": 2}
+        "backward_dq_bf16": 2, "backward_dkv_bf16": 2, "split_bf16x3": 3}
 
 
 def test_flash_unsupported_head_dim_raises(cuda):
@@ -579,7 +611,6 @@ def test_flash_without_library_raises(cuda, monkeypatch, tmp_path):
     q, k, v, do = projection_views("ragged_130", cuda)
     with torch.no_grad():
         o, lse = flash_attention.flash_attention_forward(q, k, v, 0.125)
-    monkeypatch.setattr(flash_attention, "_lib", None)
     monkeypatch.setattr(flash_attention, "_sm90_lib", None)
     monkeypatch.setattr(flash_attention, "_sm90_bwd_lib", None)
     monkeypatch.setattr(nvcc_build, "_BUILD_DIR", tmp_path)
