@@ -636,6 +636,7 @@ def kernel_class(name):
                        ("flash dq bf16", ("flash_bwd_dq_sm90_kernel",)),
                        ("flash dkv bf16", ("flash_bwd_dkv_sm90_kernel",)),
                        ("confusion", ("confusion_kernel",)),
+                       ("resize backward", ("resize_backward_kernel",)),
                        ("batch norm", ("batch_norm", "bn_")),
                        # cuDNN's implicit-GEMM and FFT convolutions (the
                        # latter multiply in complex float, cf32 GEMMs),

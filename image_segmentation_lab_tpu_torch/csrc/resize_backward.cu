@@ -25,6 +25,12 @@
 // (no fused multiply-add, so the plain version, which takes the same steps
 // tap by tap, gives the same bits), and writes dx once in x's dtype: the
 // same bits from call to call, and a bf16 dx is the float32 dx rounded once.
+// Where no input index has more than kTaps = 4 or 8 taps on either axis
+// (every upsample up to 4x), a thread first holds its taps of both axes in
+// registers and issues all its loads of g before the sums, so they are in
+// flight together; other tables (a large downsample, a 1-pixel input) take
+// the taps one at a time.  Indices are 32-bit (the wrapper keeps the
+// element counts below 2^31).
 //
 // What bounds it on the card: bytes.  At SETR's largest upsample (8, 256,
 // 160, 160) -> (320, 320) in bf16 it must read g (420 MB) and write dx
@@ -67,36 +73,82 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename Tg, typename Tx>
+__device__ __forceinline__ float tap(float acc, float wr, float wc,
+                                     float g) {
+  return __fadd_rn(acc, __fmul_rn(__fmul_rn(wr, wc), g));
+}
+
+// kTaps: the most taps of an input index on either axis (4 or 8), or 0
+// for any number, taken one at a time
+template <typename Tg, typename Tx, int kTaps>
 __global__ void __launch_bounds__(kThreads)
 resize_backward_kernel(const Tg* __restrict__ g, Tx* __restrict__ dx,
-                       int64_t total, int in_h, int in_w, int out_h,
-                       int out_w, Axis rows, Axis cols) {
-  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+                       int total, int in_h, int in_w, int out_h, int out_w,
+                       Axis rows, Axis cols) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= total) return;
-  const int j = (int)(t % in_w);
-  const int i = (int)(t / in_w % in_h);
-  const Tg* plane = g + t / ((int64_t)in_w * in_h) * out_h * out_w;
+  const int j = t % in_w;
+  const int i = t / in_w % in_h;
+  const Tg* plane = g + (int64_t)(t / in_w / in_h) * out_h * out_w;
+  const int r0 = __ldg(rows.ptr + i), r1 = __ldg(rows.ptr + i + 1);
   const int c0 = __ldg(cols.ptr + j), c1 = __ldg(cols.ptr + j + 1);
-  const int r1 = __ldg(rows.ptr + i + 1);
   float acc = 0.f;
-  for (int a = __ldg(rows.ptr + i); a < r1; ++a) {
-    const float wr = __ldg(rows.w + a);
-    const Tg* row = plane + (int64_t)__ldg(rows.idx + a) * out_w;
-    for (int b = c0; b < c1; ++b)
-      acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(wr, __ldg(cols.w + b)),
-                                     to_float(row[__ldg(cols.idx + b)])));
+  if constexpr (kTaps == 0) {
+    for (int a = r0; a < r1; ++a) {
+      const float wr = __ldg(rows.w + a);
+      const Tg* row = plane + __ldg(rows.idx + a) * out_w;
+      for (int b = c0; b < c1; ++b)
+        acc = tap(acc, wr, __ldg(cols.w + b),
+                  to_float(row[__ldg(cols.idx + b)]));
+    }
+  } else {
+    const Tg* row[kTaps];
+    float wr[kTaps], wc[kTaps], v[kTaps][kTaps];
+    int col[kTaps];
+#pragma unroll
+    for (int a = 0; a < kTaps; ++a) {
+      const bool in = r0 + a < r1;
+      row[a] = plane + (in ? __ldg(rows.idx + r0 + a) : 0) * out_w;
+      wr[a] = in ? __ldg(rows.w + r0 + a) : 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < kTaps; ++b) {
+      const bool in = c0 + b < c1;
+      col[b] = in ? __ldg(cols.idx + c0 + b) : 0;
+      wc[b] = in ? __ldg(cols.w + c0 + b) : 0.f;
+    }
+#pragma unroll
+    for (int a = 0; a < kTaps; ++a)
+#pragma unroll
+      for (int b = 0; b < kTaps; ++b)
+        v[a][b] = r0 + a < r1 && c0 + b < c1 ? to_float(row[a][col[b]])
+                                             : 0.f;
+#pragma unroll
+    for (int a = 0; a < kTaps; ++a)
+#pragma unroll
+      for (int b = 0; b < kTaps; ++b)
+        if (r0 + a < r1 && c0 + b < c1)
+          acc = tap(acc, wr[a], wc[b], v[a][b]);
   }
   dx[t] = from_float<Tx>(acc);
 }
 
 template <typename Tg, typename Tx>
-int launch(const void* g, void* dx, int64_t total, int in_h, int in_w,
-           int out_h, int out_w, Axis rows, Axis cols, cudaStream_t stream) {
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  resize_backward_kernel<Tg, Tx><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const Tg*>(g), static_cast<Tx*>(dx), total, in_h, in_w,
-      out_h, out_w, rows, cols);
+int launch(const void* g, void* dx, int total, int in_h, int in_w,
+           int out_h, int out_w, int max_taps, Axis rows, Axis cols,
+           cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+  const auto* gt = static_cast<const Tg*>(g);
+  auto* dxt = static_cast<Tx*>(dx);
+  if (max_taps <= 4)
+    resize_backward_kernel<Tg, Tx, 4><<<blocks, kThreads, 0, stream>>>(
+        gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
+  else if (max_taps <= 8)
+    resize_backward_kernel<Tg, Tx, 8><<<blocks, kThreads, 0, stream>>>(
+        gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
+  else
+    resize_backward_kernel<Tg, Tx, 0><<<blocks, kThreads, 0, stream>>>(
+        gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
   return (int)cudaGetLastError();
 }
 
@@ -104,38 +156,40 @@ int launch(const void* g, void* dx, int64_t total, int in_h, int in_w,
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers: g
 // is a contiguous (planes, out_h, out_w) tensor, dx a contiguous
-// (planes, in_h, in_w) one; dtypes are 0 for float32 and 1 for bfloat16.
-// The tables are int32 offsets (in + 1) and indices and float32 weights.
-// Returns the cudaError_t of the launch (0 on success).
+// (planes, in_h, in_w) one, each of fewer than 2^31 elements; dtypes are 0
+// for float32 and 1 for bfloat16.  The tables are int32 offsets (in + 1)
+// and indices and float32 weights; max_taps is the most taps of an input
+// index on either axis.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" {
 
 int resize_backward_bilinear(const void* g, int g_dtype, void* dx,
                              int dx_dtype, int64_t planes, int in_h, int in_w,
-                             int out_h, int out_w, const int* row_ptr,
-                             const int* row_idx, const float* row_w,
-                             const int* col_ptr, const int* col_idx,
-                             const float* col_w, void* stream) {
+                             int out_h, int out_w, int max_taps,
+                             const int* row_ptr, const int* row_idx,
+                             const float* row_w, const int* col_ptr,
+                             const int* col_idx, const float* col_w,
+                             void* stream) {
   const int64_t total = planes * in_h * in_w;
   if (total == 0) return 0;
-  if ((total + kThreads - 1) / kThreads > 0x7fffffff)
+  if (total > 0x7fffffff || planes * out_h * out_w > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const Axis rows{row_ptr, row_idx, row_w}, cols{col_ptr, col_idx, col_w};
   const cudaStream_t s = (cudaStream_t)stream;
-  const int key = 2 * g_dtype + dx_dtype;
-  switch (key) {
+  const int n = (int)total;
+  switch (2 * g_dtype + dx_dtype) {
     case 0:
-      return launch<float, float>(g, dx, total, in_h, in_w, out_h, out_w,
-                                  rows, cols, s);
+      return launch<float, float>(g, dx, n, in_h, in_w, out_h, out_w,
+                                  max_taps, rows, cols, s);
     case 1:
-      return launch<float, __nv_bfloat16>(g, dx, total, in_h, in_w, out_h,
-                                          out_w, rows, cols, s);
+      return launch<float, __nv_bfloat16>(g, dx, n, in_h, in_w, out_h, out_w,
+                                          max_taps, rows, cols, s);
     case 2:
-      return launch<__nv_bfloat16, float>(g, dx, total, in_h, in_w, out_h,
-                                          out_w, rows, cols, s);
+      return launch<__nv_bfloat16, float>(g, dx, n, in_h, in_w, out_h, out_w,
+                                          max_taps, rows, cols, s);
     case 3:
-      return launch<__nv_bfloat16, __nv_bfloat16>(g, dx, total, in_h, in_w,
-                                                  out_h, out_w, rows, cols,
-                                                  s);
+      return launch<__nv_bfloat16, __nv_bfloat16>(
+          g, dx, n, in_h, in_w, out_h, out_w, max_taps, rows, cols, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -46,9 +46,10 @@ def build_library() -> ctypes.CDLL:
         lib = load_library("resize_backward.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # g, g dtype, dx, dx dtype, planes, in_h, in_w, out_h, out_w, the
-        # row table (offsets, indices, weights), the column table, stream
+        # most taps, the row table (offsets, indices, weights), the column
+        # table, stream
         lib.resize_backward_bilinear.argtypes = (
-            [ptr, i32, ptr, i32, ctypes.c_int64] + [i32] * 4 + [ptr] * 7)
+            [ptr, i32, ptr, i32, ctypes.c_int64] + [i32] * 5 + [ptr] * 7)
         lib.resize_backward_bilinear.restype = i32
         lib.resize_backward_error_string.argtypes = [i32]
         lib.resize_backward_error_string.restype = ctypes.c_char_p
@@ -146,8 +147,9 @@ def resize_backward_plain(g: torch.Tensor, in_size: Sequence[int],
 @functools.lru_cache(maxsize=None)
 def _device_tables(in_h, out_h, in_w, out_w, align_corners, device):
     """The row and column tables on ``device``, packed: int32 offsets and
-    indices, float32 weights; with the element offset of each piece."""
-    ints, floats, where = [], [], []
+    indices, float32 weights; with the element offset of each piece, and
+    the most taps of an input index on either axis."""
+    ints, floats, where, taps = [], [], [], 0
     for n_in, n_out in ((in_h, out_h), (in_w, out_w)):
         offsets, idx, w = axis_table(n_in, n_out, align_corners)
         start = sum(len(t) for t in ints)
@@ -155,8 +157,9 @@ def _device_tables(in_h, out_h, in_w, out_w, align_corners, device):
                                                        for t in floats)))
         ints += [offsets, idx]
         floats.append(w)
+        taps = max(taps, int(np.diff(offsets).max()))
     return (torch.from_numpy(np.concatenate(ints)).to(device),
-            torch.from_numpy(np.concatenate(floats)).to(device), where)
+            torch.from_numpy(np.concatenate(floats)).to(device), where, taps)
 
 
 def resize_backward(g: torch.Tensor, in_size: Sequence[int],
@@ -174,8 +177,10 @@ def resize_backward(g: torch.Tensor, in_size: Sequence[int],
     dx = torch.empty((n, c, in_h, in_w), dtype=dtype, device=g.device)
     if dx.numel() == 0:
         return dx
-    ints, floats, where = _device_tables(in_h, out_h, in_w, out_w,
-                                         bool(align_corners), g.device)
+    if max(g.numel(), dx.numel()) >= 2 ** 31:
+        raise ValueError("the kernel indexes elements with 32-bit ints")
+    ints, floats, where, taps = _device_tables(in_h, out_h, in_w, out_w,
+                                               bool(align_corners), g.device)
     i_ptr, f_ptr = ints.data_ptr(), floats.data_ptr()
     tables = []
     for offsets, idx, w in where:
@@ -185,7 +190,7 @@ def resize_backward(g: torch.Tensor, in_size: Sequence[int],
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = lib.resize_backward_bilinear(
             g.data_ptr(), _DTYPES[g.dtype], dx.data_ptr(), _DTYPES[dtype],
-            n * c, in_h, in_w, out_h, out_w, *tables, stream)
+            n * c, in_h, in_w, out_h, out_w, taps, *tables, stream)
     if err != 0:
         raise RuntimeError(f"resize backward kernel launch failed: "
                            f"{lib.resize_backward_error_string(err).decode()}")
