@@ -19,30 +19,33 @@
 // input element, a 4x step 8 x 8, a downsample 1-2 per axis, and an input
 // side of 1 every output of that axis.
 //
-// Design: two passes through shared memory, the separable form of the sum.
-// A CTA owns a tile of 8 input rows by 32 input columns of one (n, c)
-// plane.  Pass 1: for every output row o that a row of the tile reads
-// (a contiguous range: the taps move monotonically with the input index),
-// and each of the tile's columns j, r[o, j] = sum over j's column taps p
-// of B[p, j] * g[o, p], ascending p, into shared memory (a warp's lanes
-// take neighbouring j: coalesced loads of g).  Pass 2: each thread sums
-// dx[i, j] = A[o, i] * r[o, j] over its row taps o, ascending.  Output rows
-// pass through shared memory 64 at a time, so any table fits.  float32
-// with every step rounded (no fused multiply-add), so the plain version,
-// which takes the same two passes tap by tap, gives the same bits; no
-// atomics, so a call gives the same bits every time, and a bf16 dx is the
-// float32 dx rounded once.  A thread holds up to 8 column taps in
-// registers and issues their loads of g together.
+// Design: one thread per input element (n, c, i, j) sums
+// (A[o, i] * B[p, j]) * g[o, p] over its row taps o (ascending) and, for
+// each, its column taps p (ascending), in float32 with every step rounded
+// (no fused multiply-add, so the plain version, which takes the same steps
+// tap by tap, gives the same bits), and writes dx once in x's dtype: the
+// same bits from call to call, and a bf16 dx is the float32 dx rounded once.
+// Where no input index has more than kTaps = 4 or 8 taps on either axis
+// (every upsample up to 4x), a thread first holds its taps of both axes in
+// registers and issues all its loads of g before the sums, so they are in
+// flight together; other tables (a large downsample, a 1-pixel input) take
+// the taps one at a time.  Indices are 32-bit (the wrapper keeps the
+// element counts below 2^31).
 //
 // What bounds it on the card: bytes.  At SETR's largest upsample (8, 256,
 // 160, 160) -> (320, 320) in bf16 it must read g (420 MB) and write dx
-// (105 MB): 0.16 ms at 3.35 TB/s, against 4 + 4 multiply-adds per element
-// of dx (a 2x step) and a few more for the rows a tile's neighbours also
-// read.  A first design, one thread per input element summing its 4 x 4
-// taps straight from g, issued about 300 instructions an element and took
-// 6-8x the byte bound; this one takes fewer loads and keeps g read about
-// once, as a two-pass design with a global float32 scratch would not
-// (1.36 GB of traffic at that shape, 2.6x the 0.53 GB of this one).
+// (105 MB): 0.16 ms at 3.35 TB/s, against 16 multiply-adds per element of
+// dx.  Neighbouring threads share most of their taps, so a warp's loads
+// come from a few L1 lines and g is read from device memory about once.
+// It takes about 6x that bound on an H100: by count each element costs
+// about 300 instructions (16 taps, each an index, a weight and an element
+// of g to load, two products and a sum).  The separable form takes 4 + 4
+// taps: reducing along W into a float32 scratch in device memory moves
+// 1.36 GB at that shape, 2.6x this design's 0.53 GB, and with the scratch
+// in shared memory instead (a CTA of 8 x 32 input elements reducing the
+// output rows it reads, then its row taps) it measured 1.5x slower than
+// this design on the H100: each CTA waits on its loads between two
+// barriers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,11 +53,7 @@
 
 namespace {
 
-constexpr int kTileW = 32;  // input columns a CTA owns: a warp's lanes
-constexpr int kTileH = 8;   // input rows a CTA owns: one a warp
-constexpr int kThreads = kTileW * kTileH;
-constexpr int kChunk = 64;  // output rows a pass through shared memory
-constexpr int kColTaps = 8;  // column taps a thread holds in registers
+constexpr int kThreads = 256;
 
 // one axis's table: for input index i, entries ptr[i] .. ptr[i + 1] - 1 of
 // idx (output indices, ascending) and w (their weights)
@@ -80,89 +79,82 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// acc + w * x, each step rounded
-__device__ __forceinline__ float tap(float acc, float w, float x) {
-  return __fadd_rn(acc, __fmul_rn(w, x));
+__device__ __forceinline__ float tap(float acc, float wr, float wc,
+                                     float g) {
+  return __fadd_rn(acc, __fmul_rn(__fmul_rn(wr, wc), g));
 }
 
-template <typename Tg, typename Tx>
+// kTaps: the most taps of an input index on either axis (4 or 8), or 0
+// for any number, taken one at a time
+template <typename Tg, typename Tx, int kTaps>
 __global__ void __launch_bounds__(kThreads)
 resize_backward_kernel(const Tg* __restrict__ g, Tx* __restrict__ dx,
-                       int tiles_w, int tiles_h, int in_h, int in_w,
-                       int out_h, int out_w, Axis rows, Axis cols) {
-  __shared__ float r_s[kChunk][kTileW];
-  const int lane = threadIdx.x % kTileW, warp = threadIdx.x / kTileW;
-  const int tw = blockIdx.x % tiles_w;
-  const int th = blockIdx.x / tiles_w % tiles_h;
-  const int plane = blockIdx.x / tiles_w / tiles_h;
-  const int j = tw * kTileW + lane, i = th * kTileH + warp;
-  const Tg* gp = g + (int64_t)plane * out_h * out_w;
-
-  // this thread's column taps (none past in_w) and row taps (none past
-  // in_h or in_w)
-  const int c0 = j < in_w ? __ldg(cols.ptr + j) : 0;
-  const int nc = j < in_w ? __ldg(cols.ptr + j + 1) - c0 : 0;
-  const bool in = i < in_h && j < in_w;
-  int a = in ? __ldg(rows.ptr + i) : 0;
-  const int a1 = in ? __ldg(rows.ptr + i + 1) : 0;
-  int col[kColTaps];
-  float wc[kColTaps];
-#pragma unroll
-  for (int b = 0; b < kColTaps; ++b) {
-    col[b] = b < nc ? __ldg(cols.idx + c0 + b) : 0;
-    wc[b] = b < nc ? __ldg(cols.w + c0 + b) : 0.f;
-  }
-
-  // the output rows the tile reads: from the first tap of its first row to
-  // the last tap of its last row
-  const int e0 = __ldg(rows.ptr + th * kTileH);
-  const int e1 = __ldg(rows.ptr + min(th * kTileH + kTileH, in_h));
+                       int total, int in_h, int in_w, int out_h, int out_w,
+                       Axis rows, Axis cols) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int j = t % in_w;
+  const int i = t / in_w % in_h;
+  const Tg* plane = g + (int64_t)(t / in_w / in_h) * out_h * out_w;
+  const int r0 = __ldg(rows.ptr + i), r1 = __ldg(rows.ptr + i + 1);
+  const int c0 = __ldg(cols.ptr + j), c1 = __ldg(cols.ptr + j + 1);
   float acc = 0.f;
-  if (e0 < e1) {
-    const int o_lo = __ldg(rows.idx + e0), o_hi = __ldg(rows.idx + e1 - 1);
-    for (int base = o_lo; base <= o_hi; base += kChunk) {
-      const int n_rows = min(kChunk, o_hi - base + 1);
-      // pass 1: r[o, j] over the column taps
-      for (int rr = warp; rr < n_rows; rr += kTileH) {
-        const Tg* g_row = gp + (int64_t)(base + rr) * out_w;
-        float s = 0.f;
-        if (nc <= kColTaps) {
-          float v[kColTaps];
-#pragma unroll
-          for (int b = 0; b < kColTaps; ++b)
-            v[b] = b < nc ? to_float(g_row[col[b]]) : 0.f;
-#pragma unroll
-          for (int b = 0; b < kColTaps; ++b)
-            if (b < nc) s = tap(s, wc[b], v[b]);
-        } else {
-          for (int b = c0; b < c0 + nc; ++b)
-            s = tap(s, __ldg(cols.w + b), to_float(g_row[__ldg(cols.idx + b)]));
-        }
-        r_s[rr][lane] = s;
-      }
-      __syncthreads();
-      // pass 2: this thread's row taps that fall in the chunk, ascending
-      for (; a < a1; ++a) {
-        const int o = __ldg(rows.idx + a) - base;
-        if (o >= n_rows) break;
-        acc = tap(acc, __ldg(rows.w + a), r_s[o][lane]);
-      }
-      __syncthreads();  // the chunk is read before the next overwrites it
+  if constexpr (kTaps == 0) {
+    for (int a = r0; a < r1; ++a) {
+      const float wr = __ldg(rows.w + a);
+      const Tg* row = plane + __ldg(rows.idx + a) * out_w;
+      for (int b = c0; b < c1; ++b)
+        acc = tap(acc, wr, __ldg(cols.w + b),
+                  to_float(row[__ldg(cols.idx + b)]));
     }
+  } else {
+    const Tg* row[kTaps];
+    float wr[kTaps], wc[kTaps], v[kTaps][kTaps];
+    int col[kTaps];
+#pragma unroll
+    for (int a = 0; a < kTaps; ++a) {
+      const bool in = r0 + a < r1;
+      row[a] = plane + (in ? __ldg(rows.idx + r0 + a) : 0) * out_w;
+      wr[a] = in ? __ldg(rows.w + r0 + a) : 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < kTaps; ++b) {
+      const bool in = c0 + b < c1;
+      col[b] = in ? __ldg(cols.idx + c0 + b) : 0;
+      wc[b] = in ? __ldg(cols.w + c0 + b) : 0.f;
+    }
+#pragma unroll
+    for (int a = 0; a < kTaps; ++a)
+#pragma unroll
+      for (int b = 0; b < kTaps; ++b)
+        v[a][b] = r0 + a < r1 && c0 + b < c1 ? to_float(row[a][col[b]])
+                                             : 0.f;
+#pragma unroll
+    for (int a = 0; a < kTaps; ++a)
+#pragma unroll
+      for (int b = 0; b < kTaps; ++b)
+        if (r0 + a < r1 && c0 + b < c1)
+          acc = tap(acc, wr[a], wc[b], v[a][b]);
   }
-  if (in) dx[((int64_t)plane * in_h + i) * in_w + j] = from_float<Tx>(acc);
+  dx[t] = from_float<Tx>(acc);
 }
 
 template <typename Tg, typename Tx>
-int launch(const void* g, void* dx, int planes, int in_h, int in_w,
-           int out_h, int out_w, Axis rows, Axis cols, cudaStream_t stream) {
-  const int tiles_w = (in_w + kTileW - 1) / kTileW;
-  const int tiles_h = (in_h + kTileH - 1) / kTileH;
-  const int64_t blocks = (int64_t)tiles_w * tiles_h * planes;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  resize_backward_kernel<Tg, Tx><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const Tg*>(g), static_cast<Tx*>(dx), tiles_w, tiles_h,
-      in_h, in_w, out_h, out_w, rows, cols);
+int launch(const void* g, void* dx, int total, int in_h, int in_w,
+           int out_h, int out_w, int max_taps, Axis rows, Axis cols,
+           cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+  const auto* gt = static_cast<const Tg*>(g);
+  auto* dxt = static_cast<Tx*>(dx);
+  if (max_taps <= 4)
+    resize_backward_kernel<Tg, Tx, 4><<<blocks, kThreads, 0, stream>>>(
+        gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
+  else if (max_taps <= 8)
+    resize_backward_kernel<Tg, Tx, 8><<<blocks, kThreads, 0, stream>>>(
+        gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
+  else
+    resize_backward_kernel<Tg, Tx, 0><<<blocks, kThreads, 0, stream>>>(
+        gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
   return (int)cudaGetLastError();
 }
 
@@ -170,33 +162,40 @@ int launch(const void* g, void* dx, int planes, int in_h, int in_w,
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers: g
 // is a contiguous (planes, out_h, out_w) tensor, dx a contiguous
-// (planes, in_h, in_w) one; dtypes are 0 for float32 and 1 for bfloat16.
-// The tables are int32 offsets (in + 1) and indices and float32 weights.
-// Returns the cudaError_t of the launch (0 on success).
+// (planes, in_h, in_w) one, each of fewer than 2^31 elements; dtypes are 0
+// for float32 and 1 for bfloat16.  The tables are int32 offsets (in + 1)
+// and indices and float32 weights; max_taps is the most taps of an input
+// index on either axis.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" {
 
 int resize_backward_bilinear(const void* g, int g_dtype, void* dx,
-                             int dx_dtype, int planes, int in_h, int in_w,
-                             int out_h, int out_w, const int* row_ptr,
-                             const int* row_idx, const float* row_w,
-                             const int* col_ptr, const int* col_idx,
-                             const float* col_w, void* stream) {
-  if ((int64_t)planes * in_h * in_w == 0) return 0;
+                             int dx_dtype, int64_t planes, int in_h, int in_w,
+                             int out_h, int out_w, int max_taps,
+                             const int* row_ptr, const int* row_idx,
+                             const float* row_w, const int* col_ptr,
+                             const int* col_idx, const float* col_w,
+                             void* stream) {
+  const int64_t total = planes * in_h * in_w;
+  if (total == 0) return 0;
+  if (total > 0x7fffffff || planes * out_h * out_w > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   const Axis rows{row_ptr, row_idx, row_w}, cols{col_ptr, col_idx, col_w};
   const cudaStream_t s = (cudaStream_t)stream;
+  const int n = (int)total;
   switch (2 * g_dtype + dx_dtype) {
     case 0:
-      return launch<float, float>(g, dx, planes, in_h, in_w, out_h, out_w,
-                                  rows, cols, s);
+      return launch<float, float>(g, dx, n, in_h, in_w, out_h, out_w,
+                                  max_taps, rows, cols, s);
     case 1:
-      return launch<float, __nv_bfloat16>(g, dx, planes, in_h, in_w, out_h,
-                                          out_w, rows, cols, s);
+      return launch<float, __nv_bfloat16>(g, dx, n, in_h, in_w, out_h, out_w,
+                                          max_taps, rows, cols, s);
     case 2:
-      return launch<__nv_bfloat16, float>(g, dx, planes, in_h, in_w, out_h,
-                                          out_w, rows, cols, s);
+      return launch<__nv_bfloat16, float>(g, dx, n, in_h, in_w, out_h, out_w,
+                                          max_taps, rows, cols, s);
     case 3:
       return launch<__nv_bfloat16, __nv_bfloat16>(
-          g, dx, planes, in_h, in_w, out_h, out_w, rows, cols, s);
+          g, dx, n, in_h, in_w, out_h, out_w, max_taps, rows, cols, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

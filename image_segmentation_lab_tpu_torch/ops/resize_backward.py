@@ -12,15 +12,13 @@ gradient of the JAX resize, which interpolates in float32 and casts once
 The sums are gathers over per-axis tables (``axis_table``): for each input
 index, the output indices whose lerp reads it and their float32 weights,
 computed as ``F.interpolate``'s forward computes them, so the backward is
-that forward's transpose.  They are taken in two passes, first along W
-(``r[o, j] = sum_p B[p, j]·g[o, p]``), then along H
-(``dx[i, j] = sum_o A[o, i]·r[o, j]``), each over ascending taps.  For CPU
-tensors the wrapper computes the plain version (``resize_backward_plain``:
-the same passes, ``index_select`` per tap); for CUDA tensors it launches
-the kernel of ``csrc/resize_backward.cu`` (float32 or bfloat16, built at
-first use by ``ops/nvcc_build.py``) or raises.  Both take every step
-rounded in the same order, so they give the same bits, and no atomics: the
-same bits from call to call.
+that forward's transpose.  For CPU tensors the wrapper computes the plain
+version (``resize_backward_plain``: the same taps in the same order,
+``index_select`` per tap); for CUDA tensors it launches the kernel of
+``csrc/resize_backward.cu`` (float32 or bfloat16, built at first use by
+``ops/nvcc_build.py``) or raises.  Both take every step rounded in the
+same order, so they give the same bits, and no atomics: the same bits from
+call to call.
 """
 
 from __future__ import annotations
@@ -48,9 +46,10 @@ def build_library() -> ctypes.CDLL:
         lib = load_library("resize_backward.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # g, g dtype, dx, dx dtype, planes, in_h, in_w, out_h, out_w, the
-        # row table (offsets, indices, weights), the column table, stream
+        # most taps, the row table (offsets, indices, weights), the column
+        # table, stream
         lib.resize_backward_bilinear.argtypes = (
-            [ptr, i32, ptr, i32] + [i32] * 5 + [ptr] * 7)
+            [ptr, i32, ptr, i32, ctypes.c_int64] + [i32] * 5 + [ptr] * 7)
         lib.resize_backward_bilinear.restype = i32
         lib.resize_backward_error_string.argtypes = [i32]
         lib.resize_backward_error_string.restype = ctypes.c_char_p
@@ -122,46 +121,39 @@ def _check(g, in_size, dtype):
 
 def resize_backward_plain(g: torch.Tensor, in_size: Sequence[int],
                           align_corners: bool, dtype=None) -> torch.Tensor:
-    """The kernel's sums in plain torch: ``r = r + w_col·g`` over each
-    column tap, then ``dx = dx + w_row·r`` over each row tap, in float32
-    (float64 for float64), every step rounded; then ``dtype`` (g's by
-    default)."""
+    """The kernel's sums in plain torch: for each row tap and, within it,
+    each column tap, ``acc + (w_row·w_col)·g`` in float32 (float64 for
+    float64), every step rounded; then ``dtype`` (g's by default)."""
     dtype = g.dtype if dtype is None else dtype
     (in_h, in_w), (out_h, out_w) = in_size, g.shape[2:]
     acc_dtype = torch.promote_types(g.dtype, torch.float32)
-    gf = g.to(acc_dtype)
-    col_idx, col_w, col_ok = _padded(in_w, out_w, align_corners, g.device,
-                                     acc_dtype)
-    r = torch.zeros((*g.shape[:3], in_w), dtype=acc_dtype, device=g.device)
-    for b in range(col_idx.shape[1]):
-        r = r + torch.where(col_ok[:, b],
-                            col_w[:, b] * gf.index_select(3, col_idx[:, b]),
-                            0)
     row_idx, row_w, row_ok = _padded(in_h, out_h, align_corners, g.device,
                                      acc_dtype)
+    col_idx, col_w, col_ok = _padded(in_w, out_w, align_corners, g.device,
+                                     acc_dtype)
+    gf = g.to(acc_dtype)
     acc = torch.zeros((*g.shape[:2], in_h, in_w), dtype=acc_dtype,
                       device=g.device)
     for a in range(row_idx.shape[1]):
-        acc = acc + torch.where(row_ok[:, a, None],
-                                row_w[:, a, None]
-                                * r.index_select(2, row_idx[:, a]), 0)
+        rows = gf.index_select(2, row_idx[:, a])  # (N, C, in_h, out_w)
+        for b in range(col_idx.shape[1]):
+            term = ((row_w[:, a, None] * col_w[None, :, b])
+                    * rows.index_select(3, col_idx[:, b]))
+            acc = acc + torch.where(row_ok[:, a, None] & col_ok[None, :, b],
+                                    term, 0)
     return acc.to(dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(in_h, out_h, in_w, out_w, align_corners, device):
-    """The row and column tables on ``device``, packed: int32 offsets and
-    indices, float32 weights; with the element offset of each piece."""
-    ints, floats, where = [], [], []
-    for n_in, n_out in ((in_h, out_h), (in_w, out_w)):
-        offsets, idx, w = axis_table(n_in, n_out, align_corners)
-        start = sum(len(t) for t in ints)
-        where.append((start, start + len(offsets), sum(len(t)
-                                                       for t in floats)))
-        ints += [offsets, idx]
-        floats.append(w)
-    return (torch.from_numpy(np.concatenate(ints)).to(device),
-            torch.from_numpy(np.concatenate(floats)).to(device), where)
+    """The row and the column table on ``device`` (int32 offsets and
+    indices and float32 weights of each), and the most taps of an input
+    index on either axis."""
+    tables = [axis_table(n_in, n_out, align_corners)
+              for n_in, n_out in ((in_h, out_h), (in_w, out_w))]
+    return (tuple(torch.from_numpy(t).to(device) for table in tables
+                  for t in table),
+            max(int(np.diff(table[0]).max()) for table in tables))
 
 
 def resize_backward(g: torch.Tensor, in_size: Sequence[int],
@@ -179,18 +171,17 @@ def resize_backward(g: torch.Tensor, in_size: Sequence[int],
     dx = torch.empty((n, c, in_h, in_w), dtype=dtype, device=g.device)
     if dx.numel() == 0:
         return dx
-    ints, floats, where = _device_tables(in_h, out_h, in_w, out_w,
-                                         bool(align_corners), g.device)
-    i_ptr, f_ptr = ints.data_ptr(), floats.data_ptr()
-    tables = []
-    for offsets, idx, w in where:
-        tables += [i_ptr + 4 * offsets, i_ptr + 4 * idx, f_ptr + 4 * w]
+    if max(g.numel(), dx.numel()) >= 2 ** 31:
+        raise ValueError("the kernel indexes elements with 32-bit ints")
+    tables, taps = _device_tables(in_h, out_h, in_w, out_w,
+                                  bool(align_corners), g.device)
     lib = build_library()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = lib.resize_backward_bilinear(
             g.data_ptr(), _DTYPES[g.dtype], dx.data_ptr(), _DTYPES[dtype],
-            n * c, in_h, in_w, out_h, out_w, *tables, stream)
+            n * c, in_h, in_w, out_h, out_w, taps,
+            *(t.data_ptr() for t in tables), stream)
     if err != 0:
         raise RuntimeError(f"resize backward kernel launch failed: "
                            f"{lib.resize_backward_error_string(err).decode()}")
