@@ -135,12 +135,12 @@ def resize_backward_plain(g: torch.Tensor, in_size: Sequence[int],
     acc = torch.zeros((*g.shape[:2], in_h, in_w), dtype=acc_dtype,
                       device=g.device)
     for a in range(row_idx.shape[1]):
-        rows = gf.index_select(2, row_idx[:, a])  # (N, C, in_h, out_w)
+        # every column tap of this row tap at once, (N, C, in_h, in_w, taps)
+        vals = gf.index_select(2, row_idx[:, a])[..., col_idx]
+        terms = torch.where(row_ok[:, a, None, None] & col_ok,
+                            (row_w[:, a, None, None] * col_w) * vals, 0)
         for b in range(col_idx.shape[1]):
-            term = ((row_w[:, a, None] * col_w[None, :, b])
-                    * rows.index_select(3, col_idx[:, b]))
-            acc = acc + torch.where(row_ok[:, a, None] & col_ok[None, :, b],
-                                    term, 0)
+            acc = acc + terms[..., b]
     return acc.to(dtype)
 
 
