@@ -229,9 +229,14 @@ def test_resize_gradient_matches_jax_vjp(name, dtype):
     x, gy, size, ac = resize_inputs(name, seed=12)
     jdtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
     jx, jg = (jnp.asarray(to_nhwc(t), jdtype) for t in (x, gy))
-    _, vjp = jax.vjp(lambda t: jresize(t, size, align_corners=ac,
-                                       warning=False), jx)
-    ref = to_nchw(np.asarray(vjp(jg)[0].astype(jnp.float32)))
+
+    @jax.jit  # one compile instead of one per eager op
+    def jax_grad(t, cotangent):
+        _, vjp = jax.vjp(lambda u: jresize(u, size, align_corners=ac,
+                                           warning=False), t)
+        return vjp(cotangent)[0]
+
+    ref = to_nchw(np.asarray(jax_grad(jx, jg).astype(jnp.float32)))
     tdtype = getattr(torch, dtype)
     _, got = resize_grad(x.to(tdtype), gy.to(tdtype), size, ac)
     assert got.dtype == tdtype
