@@ -13,21 +13,22 @@
 // where row o of A (and B) holds the two lerp weights of output o.  So
 //   dx[i, j] = sum_o sum_p A[o, i] B[p, j] g[o, p],
 // and per axis a small host-built table lists, for each input index i, the
-// output indices o with A[o, i] != 0 and their weights, in CSR form
-// (offsets, indices, float32 weights), the weights computed as
-// F.interpolate's forward computes them.  A 2x step gives 4 x 4 taps per
-// input element, a 4x step 8 x 8, a downsample 1-2 per axis, and an input
-// side of 1 every output of that axis.
+// output indices o with A[o, i] != 0 (ascending) and their weights, padded
+// to the most taps of any input index with index -1 and weight 0: an
+// (in, taps) table of int32 indices and one of float32 weights, the weights
+// computed as F.interpolate's forward computes them.  A 2x step gives 4 x 4
+// taps per input element, a 4x step 8 x 8, a downsample 1-2 per axis, and
+// an input side of 1 every output of that axis.
 //
 // Design: one thread per input element (n, c, i, j) sums
 // (A[o, i] * B[p, j]) * g[o, p] over its row taps o (ascending) and, for
 // each, its column taps p (ascending), in float32 with every step rounded
 // (no fused multiply-add, so the plain version, which takes the same steps
 // tap by tap, gives the same bits), and writes dx once in x's dtype: the
-// same bits from call to call, and a bf16 dx is the float32 dx rounded once.
-// Where no input index has more than kTaps = 4 or 8 taps on either axis
-// (every upsample up to 4x), a thread first holds its taps of both axes in
-// registers and issues all its loads of g before the sums, so they are in
+// same bits from call to call, and a bf16 dx is the float32 dx rounded once
+// (g and dx share a dtype: float32 or bf16).  Where no input index has more
+// than kTaps = 4 or 8 taps on either axis (every upsample up to 4x), a
+// thread first holds its taps of both axes in registers and issues all its loads of g before the sums, so they are in
 // flight together; other tables (a large downsample, a 1-pixel input) take
 // the taps one at a time.  Indices are 32-bit (the wrapper keeps the
 // element counts below 2^31).
@@ -55,12 +56,12 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// one axis's table: for input index i, entries ptr[i] .. ptr[i + 1] - 1 of
-// idx (output indices, ascending) and w (their weights)
+// one axis's table: input index i reads output indices idx[i * taps + a]
+// (ascending, then -1) with weights w[i * taps + a]
 struct Axis {
-  const int* ptr;
   const int* idx;
   const float* w;
+  int taps;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -86,74 +87,81 @@ __device__ __forceinline__ float tap(float acc, float wr, float wc,
 
 // kTaps: the most taps of an input index on either axis (4 or 8), or 0
 // for any number, taken one at a time
-template <typename Tg, typename Tx, int kTaps>
+template <typename T, int kTaps>
 __global__ void __launch_bounds__(kThreads)
-resize_backward_kernel(const Tg* __restrict__ g, Tx* __restrict__ dx,
+resize_backward_kernel(const T* __restrict__ g, T* __restrict__ dx,
                        int total, int in_h, int in_w, int out_h, int out_w,
                        Axis rows, Axis cols) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= total) return;
   const int j = t % in_w;
   const int i = t / in_w % in_h;
-  const Tg* plane = g + (int64_t)(t / in_w / in_h) * out_h * out_w;
-  const int r0 = __ldg(rows.ptr + i), r1 = __ldg(rows.ptr + i + 1);
-  const int c0 = __ldg(cols.ptr + j), c1 = __ldg(cols.ptr + j + 1);
+  const T* plane = g + (int64_t)(t / in_w / in_h) * out_h * out_w;
+  const int* ri = rows.idx + i * rows.taps;
+  const float* rw = rows.w + i * rows.taps;
+  const int* ci = cols.idx + j * cols.taps;
+  const float* cw = cols.w + j * cols.taps;
   float acc = 0.f;
   if constexpr (kTaps == 0) {
-    for (int a = r0; a < r1; ++a) {
-      const float wr = __ldg(rows.w + a);
-      const Tg* row = plane + __ldg(rows.idx + a) * out_w;
-      for (int b = c0; b < c1; ++b)
-        acc = tap(acc, wr, __ldg(cols.w + b),
-                  to_float(row[__ldg(cols.idx + b)]));
+    for (int a = 0; a < rows.taps; ++a) {
+      const int r = __ldg(ri + a);
+      if (r < 0) break;
+      const float wr = __ldg(rw + a);
+      const T* row = plane + r * out_w;
+      for (int b = 0; b < cols.taps; ++b) {
+        const int c = __ldg(ci + b);
+        if (c < 0) break;
+        acc = tap(acc, wr, __ldg(cw + b), to_float(row[c]));
+      }
     }
   } else {
-    const Tg* row[kTaps];
+    const T* row[kTaps];
     float wr[kTaps], wc[kTaps], v[kTaps][kTaps];
     int col[kTaps];
+    bool row_in[kTaps], col_in[kTaps];
 #pragma unroll
     for (int a = 0; a < kTaps; ++a) {
-      const bool in = r0 + a < r1;
-      row[a] = plane + (in ? __ldg(rows.idx + r0 + a) : 0) * out_w;
-      wr[a] = in ? __ldg(rows.w + r0 + a) : 0.f;
+      const int r = a < rows.taps ? __ldg(ri + a) : -1;
+      row_in[a] = r >= 0;
+      row[a] = plane + (row_in[a] ? r : 0) * out_w;
+      wr[a] = row_in[a] ? __ldg(rw + a) : 0.f;
     }
 #pragma unroll
     for (int b = 0; b < kTaps; ++b) {
-      const bool in = c0 + b < c1;
-      col[b] = in ? __ldg(cols.idx + c0 + b) : 0;
-      wc[b] = in ? __ldg(cols.w + c0 + b) : 0.f;
+      const int c = b < cols.taps ? __ldg(ci + b) : -1;
+      col_in[b] = c >= 0;
+      col[b] = col_in[b] ? c : 0;
+      wc[b] = col_in[b] ? __ldg(cw + b) : 0.f;
     }
 #pragma unroll
     for (int a = 0; a < kTaps; ++a)
 #pragma unroll
       for (int b = 0; b < kTaps; ++b)
-        v[a][b] = r0 + a < r1 && c0 + b < c1 ? to_float(row[a][col[b]])
-                                             : 0.f;
+        v[a][b] = row_in[a] && col_in[b] ? to_float(row[a][col[b]]) : 0.f;
 #pragma unroll
     for (int a = 0; a < kTaps; ++a)
 #pragma unroll
       for (int b = 0; b < kTaps; ++b)
-        if (r0 + a < r1 && c0 + b < c1)
-          acc = tap(acc, wr[a], wc[b], v[a][b]);
+        if (row_in[a] && col_in[b]) acc = tap(acc, wr[a], wc[b], v[a][b]);
   }
-  dx[t] = from_float<Tx>(acc);
+  dx[t] = from_float<T>(acc);
 }
 
-template <typename Tg, typename Tx>
+template <typename T>
 int launch(const void* g, void* dx, int total, int in_h, int in_w,
-           int out_h, int out_w, int max_taps, Axis rows, Axis cols,
-           cudaStream_t stream) {
+           int out_h, int out_w, Axis rows, Axis cols, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  const auto* gt = static_cast<const Tg*>(g);
-  auto* dxt = static_cast<Tx*>(dx);
-  if (max_taps <= 4)
-    resize_backward_kernel<Tg, Tx, 4><<<blocks, kThreads, 0, stream>>>(
+  const auto* gt = static_cast<const T*>(g);
+  auto* dxt = static_cast<T*>(dx);
+  const int taps = rows.taps > cols.taps ? rows.taps : cols.taps;
+  if (taps <= 4)
+    resize_backward_kernel<T, 4><<<blocks, kThreads, 0, stream>>>(
         gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
-  else if (max_taps <= 8)
-    resize_backward_kernel<Tg, Tx, 8><<<blocks, kThreads, 0, stream>>>(
+  else if (taps <= 8)
+    resize_backward_kernel<T, 8><<<blocks, kThreads, 0, stream>>>(
         gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
   else
-    resize_backward_kernel<Tg, Tx, 0><<<blocks, kThreads, 0, stream>>>(
+    resize_backward_kernel<T, 0><<<blocks, kThreads, 0, stream>>>(
         gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
   return (int)cudaGetLastError();
 }
@@ -162,40 +170,30 @@ int launch(const void* g, void* dx, int total, int in_h, int in_w,
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers: g
 // is a contiguous (planes, out_h, out_w) tensor, dx a contiguous
-// (planes, in_h, in_w) one, each of fewer than 2^31 elements; dtypes are 0
-// for float32 and 1 for bfloat16.  The tables are int32 offsets (in + 1)
-// and indices and float32 weights; max_taps is the most taps of an input
-// index on either axis.  Returns the cudaError_t of the launch (0 on
-// success).
+// (planes, in_h, in_w) one of the same dtype (0 float32, 1 bfloat16), each
+// of fewer than 2^31 elements.  Each axis's table is an (in, taps) int32
+// index table padded with -1 and its float32 weights.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" {
 
-int resize_backward_bilinear(const void* g, int g_dtype, void* dx,
-                             int dx_dtype, int64_t planes, int in_h, int in_w,
-                             int out_h, int out_w, int max_taps,
-                             const int* row_ptr, const int* row_idx,
-                             const float* row_w, const int* col_ptr,
-                             const int* col_idx, const float* col_w,
-                             void* stream) {
+int resize_backward_bilinear(const void* g, void* dx, int dtype,
+                             int64_t planes, int in_h, int in_w, int out_h,
+                             int out_w, const int* row_idx, const float* row_w,
+                             int row_taps, const int* col_idx,
+                             const float* col_w, int col_taps, void* stream) {
   const int64_t total = planes * in_h * in_w;
   if (total == 0) return 0;
   if (total > 0x7fffffff || planes * out_h * out_w > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const Axis rows{row_ptr, row_idx, row_w}, cols{col_ptr, col_idx, col_w};
+  const Axis rows{row_idx, row_w, row_taps}, cols{col_idx, col_w, col_taps};
   const cudaStream_t s = (cudaStream_t)stream;
   const int n = (int)total;
-  switch (2 * g_dtype + dx_dtype) {
+  switch (dtype) {
     case 0:
-      return launch<float, float>(g, dx, n, in_h, in_w, out_h, out_w,
-                                  max_taps, rows, cols, s);
+      return launch<float>(g, dx, n, in_h, in_w, out_h, out_w, rows, cols, s);
     case 1:
-      return launch<float, __nv_bfloat16>(g, dx, n, in_h, in_w, out_h, out_w,
-                                          max_taps, rows, cols, s);
-    case 2:
-      return launch<__nv_bfloat16, float>(g, dx, n, in_h, in_w, out_h, out_w,
-                                          max_taps, rows, cols, s);
-    case 3:
-      return launch<__nv_bfloat16, __nv_bfloat16>(
-          g, dx, n, in_h, in_w, out_h, out_w, max_taps, rows, cols, s);
+      return launch<__nv_bfloat16>(g, dx, n, in_h, in_w, out_h, out_w, rows,
+                                   cols, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -40,16 +40,15 @@ class BilinearResize(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, size, align_corners):
-        ctx.in_size, ctx.dtype = tuple(x.shape[2:]), x.dtype
-        ctx.align_corners = align_corners
+        ctx.in_size, ctx.align_corners = tuple(x.shape[2:]), align_corners
         return F.interpolate(x, size=size, mode="bilinear",
                              align_corners=align_corners)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        return (resize_backward(grad, ctx.in_size, ctx.align_corners,
-                                ctx.dtype), None, None)
+        return (resize_backward(grad, ctx.in_size, ctx.align_corners),
+                None, None)
 
 
 def resize(input, size: Sequence[int], mode: str = "bilinear",
