@@ -22,10 +22,10 @@
 //   * float32 (flash_bwd_dq_bf16x3_kernel, flash_bwd_dkv_bf16x3_kernel),
 //     three parts: each float32 operand is split into three bf16 parts and
 //     each product taken as six bf16 products (sm90_bf16x3.cuh, shared with
-//     the float32 forward).  split_bf16x3_kernel writes q, k, v and dO as
-//     three contiguous bf16 planes each, once per backward call for both
-//     kernels; P and dS are split in registers, and the outputs are written
-//     in float32.
+//     the float32 forward).  split_bf16x3_kernel (launched through the
+//     forward's library) writes q, k, v and dO as three contiguous bf16
+//     planes each, once per backward call for both kernels; P and dS are
+//     split in registers, and the outputs are written in float32.
 // P and dS take the plain version's float32 steps (s * scale, - lse, expf;
 // no fused multiply-add): a bf16 rounding of dS turns a last-bit
 // difference in P into a whole bf16 step of dS, so the kernels keep to the
@@ -668,20 +668,6 @@ int flash_attention_backward_dkv_sm90_bf16(const void* q, const void* k,
   read_strides(strides, s);
   return dkv_by_head_dim(1, d, q, k, v, dout, lse, delta, dk, dv, n, heads,
                          lq, lk, s, scale, stream);
-}
-
-// float32 q, k, v and dO (with the head dim contiguous) into three
-// contiguous bf16 planes each, (3, N, Lq, H, D) for q and dO and
-// (3, N, Lk, H, D) for k and v: hi + mid + lo is the value
-int split_bf16x3_f32(const void* q, const void* k, const void* v,
-                     const void* dout, void* q_parts, void* k_parts,
-                     void* v_parts, void* do_parts, int n, int heads, int lq,
-                     int lk, int d, const int64_t* strides, void* stream) {
-  const void* src[4] = {q, k, v, dout};
-  void* dst[4] = {q_parts, k_parts, v_parts, do_parts};
-  const int lens[4] = {lq, lk, lk, lq};
-  return sm90::split_bf16x3(4, src, dst, lens, n, heads, d, strides,
-                            (cudaStream_t)stream);
 }
 
 // q, k, v and dO as split_bf16x3_f32 writes them; float32 outputs

@@ -380,17 +380,15 @@ int flash_attention_forward_sm90_bf16(const void* q, const void* k,
                      stream);
 }
 
-// float32 q, k and v (with the head dim contiguous) into three contiguous
-// bf16 planes each, (3, N, Lq, H, D) for q and (3, N, Lk, H, D) for k and
-// v: hi + mid + lo is the value
-int split_bf16x3_f32(const void* q, const void* k, const void* v,
-                     void* q_parts, void* k_parts, void* v_parts, int n,
-                     int heads, int lq, int lk, int d, const int64_t* strides,
-                     void* stream) {
-  const void* src[3] = {q, k, v};
-  void* dst[3] = {q_parts, k_parts, v_parts};
-  const int lens[3] = {lq, lk, lk};
-  return sm90::split_bf16x3(3, src, dst, lens, n, heads, d, strides,
+// `count` float32 (N, lens[t], H, D) operands src[t], the head dim
+// contiguous and three int64 element strides each (batch, position, head)
+// in `strides`, into three contiguous bf16 planes dst[t], (3, N, lens[t],
+// H, D): hi + mid + lo is the value.  The forward splits q, k and v
+// (count 3), the backward q, k, v and dO (count 4), one launch each.
+int split_bf16x3_f32(int count, const void* const* src, void* const* dst,
+                     const int* lens, int n, int heads, int d,
+                     const int64_t* strides, void* stream) {
+  return sm90::split_bf16x3(count, src, dst, lens, n, heads, d, strides,
                             (cudaStream_t)stream);
 }
 

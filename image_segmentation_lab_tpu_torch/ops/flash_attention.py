@@ -55,7 +55,7 @@ _sm90_bwd_lib = None
 def build_sm90_library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the tensor-core forward
     kernels (bfloat16, and float32 as split bf16 parts) and the split of
-    q, k and v."""
+    the forward's and the backward's float32 operands."""
     global _sm90_lib
     if _sm90_lib is None:
         lib = load_library("flash_attention_sm90.cu")
@@ -67,8 +67,10 @@ def build_sm90_library() -> ctypes.CDLL:
         lib.flash_attention_forward_sm90_bf16.argtypes = head + [ptr, f32,
                                                                  ptr]
         lib.flash_attention_forward_sm90_f32.argtypes = head + [f32, ptr]
-        # q, k, v, their three planes, n, h, lq, lk, d, strides, stream
-        lib.split_bf16x3_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr, ptr]
+        # operand count, operands, their planes, lengths, n, h, d,
+        # strides, stream
+        lib.split_bf16x3_f32.argtypes = [i32, ptr, ptr, ptr] + [i32] * 3 + [
+            ptr, ptr]
         for fn in (lib.flash_attention_forward_sm90_bf16,
                    lib.flash_attention_forward_sm90_f32,
                    lib.split_bf16x3_f32):
@@ -81,7 +83,7 @@ def build_sm90_library() -> ctypes.CDLL:
 
 def build_sm90_backward_library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the tensor-core dQ and dK/dV
-    kernels (bfloat16, and float32 as split bf16 parts) and the split."""
+    kernels (bfloat16, and float32 as split bf16 parts)."""
     global _sm90_bwd_lib
     if _sm90_bwd_lib is None:
         lib = load_library("flash_attention_bwd_sm90.cu")
@@ -97,9 +99,6 @@ def build_sm90_backward_library() -> ctypes.CDLL:
                                 f"flash_attention_backward_{name}_sm90_f32")
             f32_entry.argtypes = head + [f32, ptr]
             bf16.restype = f32_entry.restype = i32
-        # q, k, v, dO, their four planes, n, h, lq, lk, d, strides, stream
-        lib.split_bf16x3_f32.argtypes = [ptr] * 8 + [i32] * 5 + [ptr, ptr]
-        lib.split_bf16x3_f32.restype = i32
         lib.flash_attention_backward_sm90_error_string.argtypes = [i32]
         lib.flash_attention_backward_sm90_error_string.restype = \
             ctypes.c_char_p
@@ -292,8 +291,8 @@ def _check_backward(q, k, v, do, lse, delta):
 def split_bf16x3(q, k, v, do=None):
     """The bf16 parts of float32 q, k, v and (for the backward) dO, each
     ``(3, *t.shape)`` contiguous as ``split_bf16x3_plain`` gives them: one
-    launch of the split kernel for all of them, from the forward's library
-    for q, k and v, from the backward's with dO."""
+    launch of the split kernel for all of them (the forward's library holds
+    it)."""
     _check(q, k, v)
     operands = (q, k, v) if do is None else (q, k, v, do)
     if q.dtype != torch.float32 or (do is not None and (
@@ -311,15 +310,13 @@ def split_bf16x3(q, k, v, do=None):
     if k.numel() == 0:  # (and so q, which shares N, h and d)
         return planes
     n, lq, h, d = q.shape
-    if do is None:
-        lib = build_sm90_library()
-        error_string = lib.flash_attention_sm90_error_string
-    else:
-        lib = build_sm90_backward_library()
-        error_string = lib.flash_attention_backward_sm90_error_string
-    _launch(lib.split_bf16x3_f32, error_string, q,
-            (*(t.data_ptr() for t in (*operands, *planes)), n, h, lq,
-             k.shape[1], d, _strides(*operands)))
+    lens = (lq, k.shape[1], k.shape[1], lq)[:len(operands)]
+    ptrs = [(ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+            for ts in (operands, planes)]
+    lib = build_sm90_library()
+    _launch(lib.split_bf16x3_f32, lib.flash_attention_sm90_error_string, q,
+            (len(operands), *ptrs, (ctypes.c_int * len(lens))(*lens), n, h,
+             d, _strides(*operands)))
     launches["split_bf16x3"] += 1
     return planes
 
