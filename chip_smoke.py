@@ -13,8 +13,8 @@ printing its own lines; any failure raises and the exit code is not 0:
    kernel's registers, stack, shared and local memory (``cuobjdump
    -res-usage``): the six forward kernels (bf16 and float32, d =
    32/48/64), the twelve backward kernels (dQ and dK/dV, bf16 and
-   float32), the split in both libraries and the resize backward must all
-   be there, with stack and local memory 0, so nothing spills;
+   float32), the split (in the forward's library) and the resize backward
+   must all be there, with stack and local memory 0, so nothing spills;
 3. confusion kernel: against its plain PyTorch version (exact equality) at
    the eval batches of both slices, at a Cityscapes-sized batch in float32
    and bfloat16, and at a ragged shape with ignored and out-of-range labels;
@@ -963,9 +963,9 @@ def resize_backward_phase(device, l2_flush):
             # reads g once, writes dx once (and the small tables); three
             # operations a tap: the weights' product, its product with g,
             # the add
-            taps = (n * c
-                    * len(resize_backward.axis_table(h, size[0], False)[1])
-                    * len(resize_backward.axis_table(w, size[1], False)[1]))
+            taps = n * c * math.prod(
+                int((resize_backward.axis_table(i, o, False)[0] >= 0).sum())
+                for i, o in zip((h, w), size))
             bound, bound_by = bound_ms(
                 (gy.numel() + got.numel()) * gy.element_size(), 3.0 * taps,
                 PEAK_FLOPS[torch.float32])
@@ -998,6 +998,12 @@ def flash_counts(amp=False):
     """Launches of the flash kernels (forward, dQ, dK/dV and, in float32,
     the split) of the policy's dtype: float32, or bf16 with ``amp``."""
     return {k: flash_attention.launches[k] for k in FLASH_KEYS[amp]}
+
+
+def step_counts(amp=False):
+    """``flash_counts`` and the resize backward's launches: the kernels of
+    a train step."""
+    return dict(flash_counts(amp), **resize_backward.launches)
 
 
 def per_step_launches(key):
@@ -1045,9 +1051,7 @@ def setr_train_phase(device, amp=False):
     logs, step_ms, per_step, rates = [], [], [], []
     for _ in range(TRAIN_STEPS):
         rates.append(state.optimizer.param_groups[0]["lr"])
-        counts = flash_counts(amp)
-        counts["resize_backward"] = resize_backward.launches[
-            "resize_backward"]
+        counts = step_counts(amp)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with policy_scope(policy):
@@ -1055,9 +1059,9 @@ def setr_train_phase(device, amp=False):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         state.step += 1
-        per_step.append({k: v - counts[k] for k, v in dict(
-            flash_counts(amp), **resize_backward.launches).items()})
-    launches = dict(flash_counts(amp), **resize_backward.launches)
+        per_step.append({k: v - counts[k]
+                         for k, v in step_counts(amp).items()})
+    launches = step_counts(amp)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     other = {k: flash_attention.launches[k] for k in FLASH_KEYS[not amp]}
     if any(other.values()):
@@ -1189,7 +1193,7 @@ def setr_train_agreement_phase(device):
     reset_counts()
     gpu_loss = one_train_step(gpu_model, x, gt, device)
     torch.cuda.synchronize()
-    launches = flash_counts()
+    launches = step_counts()
     if any(n != per_step_launches(k) for k, n in launches.items()):
         raise AssertionError(f"the card's step launched {launches}")
     if abs(gpu_loss - ref_loss) > 1e-4 * abs(ref_loss):
@@ -1263,8 +1267,7 @@ def main():
             ("backward", libs[2], [f"{kernel}<{d}>" for kernel in
                                    (*FLASH_BWD_KERNEL[torch.float32],
                                     *FLASH_BWD_KERNEL[torch.bfloat16])
-                                   for d in d_all]
-             + ["split_bf16x3_kernel"]),
+                                   for d in d_all]),
             ("resize backward", libs[3], ["resize_backward_kernel"])):
         usage = resource_usage(lib)
         print(f"{what} kernels resources: " + json.dumps(usage), flush=True)

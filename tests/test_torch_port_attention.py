@@ -356,6 +356,6 @@ def test_six_bf16_products_keep_float32_forward_accuracy():
 
 
 def test_no_fallback_around_the_kernel():
-    for module in (flash_attention, attention):
+    for module in (flash_attention, attention, resize_backward):
         tree = ast.parse(inspect.getsource(module))
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
