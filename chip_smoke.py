@@ -394,15 +394,17 @@ def resource_usage(lib):
     """Registers, stack, static shared memory and local memory (bytes;
     stack and local memory above 0 when registers spill) of each kernel in
     a built library, from ``cuobjdump -res-usage``: kernel name ->
-    {"REG": n, "STACK": n, "SHARED": n, "LOCAL": n}."""
+    {"REG": n, "STACK": n, "SHARED": n, "LOCAL": n}, the most of any
+    instance where several share a name (instances on a type)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-res-usage", lib._name], capture_output=True,
                          text=True, check=True).stdout
     usage = {}
     for name, fields in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", out):
-        usage[kernel_name(name)] = {
-            key: int(val) for key, val in
-            re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", fields)}
+        use = usage.setdefault(kernel_name(name), {})
+        for key, val in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)",
+                                   fields):
+            use[key] = max(int(val), use.get(key, 0))
     return usage
 
 
@@ -1413,8 +1415,8 @@ def main():
     }] + backward_entries(torch.float32, train_launches) + [{
         # the float32 operand split of the forward (q, k, v) and the
         # backward (q, k, v, dO), part of the K3-K5 port; one kernel in
-        # sm90_bf16x3.cuh, built into both libraries; the row is the
-        # backward's four operands at SETR's shape
+        # sm90_bf16x3.cuh, launched through the forward's library; the row
+        # is the backward's four operands at SETR's shape
         "name": "split_bf16x3",
         "route": "cuda",
         "source": "image_segmentation_lab_tpu_torch/csrc/sm90_bf16x3.cuh",
