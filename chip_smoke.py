@@ -13,11 +13,20 @@ printing its own lines; any failure raises and the exit code is not 0:
    kernel's registers, stack, shared and local memory (``cuobjdump
    -res-usage``): the six forward kernels (bf16 and float32, d =
    32/48/64), the twelve backward kernels (dQ and dK/dV, bf16 and
-   float32), the split (in the forward's library) and the resize backward
-   must all be there, with stack and local memory 0, so nothing spills;
-3. confusion kernel: against its plain PyTorch version (exact equality) at
-   the eval batches of both slices, at a Cityscapes-sized batch in float32
-   and bfloat16, and at a ragged shape with ignored and out-of-range labels;
+   float32), the split (in the forward's library), the resize backward and
+   the confusion kernel (the most of its 24 instances) must all be there,
+   with stack and local memory 0, so nothing spills;
+3. confusion kernel, both entries (logits, K1; labels, K2): against its
+   plain PyTorch version (exact equality) at the eval batches of both
+   slices, at a Cityscapes-sized batch in float32 and bfloat16, and at a
+   ragged shape with ignored and out-of-range labels; one call of each
+   entry must be exactly one device kernel (no fill, no cast), and every
+   kernel instance that a main path launches (phases 6-8) must have been
+   held here; beside it ``torch.argmax`` + ``torch.bincount`` of the (gt,
+   pred) pairs (K1) and the ``bincount`` alone (K2) as yardsticks, whose
+   confusion matrix must hold the same counts; the kernel's device time
+   also after a flush that reads 96 MB and leaves the L2 clean
+   (``*_clean_l2``);
 4. flash-attention forward kernels (on the tensor cores; bfloat16 as it
    is, float32 split into three bf16 parts by the split kernel): against
    their plain version at SETR ViT-S/16's shape at 640² and at SegFormer-B0
@@ -141,6 +150,7 @@ SLIDE = dict(mode="slide", crop_size=(320, 320), stride=(192, 192))
 KERNEL_SHAPES = [  # (N, C, H, W), num_classes, dtype
     ((8, 2, 512, 512), 2, torch.float32),
     ((8, 2, 640, 640), 2, torch.float32),      # the SETR slice's evaluator
+    ((8, 2, 640, 640), 2, torch.bfloat16),     # the same under amp
     ((2, 19, 1024, 2048), 19, torch.float32),
     ((2, 19, 1024, 2048), 19, torch.bfloat16),
     ((3, 5, 97, 131), 5, torch.float32),
@@ -246,8 +256,8 @@ def cuda_ms(fn, flush=None, warmup=3, runs=20):
 
 def kernel_times(fn, flush=None, runs=1):
     """Device milliseconds per run of every CUDA kernel ``fn()`` launches,
-    from ``torch.profiler`` (kernel name -> ms), and the wall milliseconds
-    per run under the profiler."""
+    from ``torch.profiler`` (kernel name -> ms), the wall milliseconds per
+    run under the profiler, and each kernel's launches (name -> count)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -260,30 +270,42 @@ def kernel_times(fn, flush=None, runs=1):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / runs
-    times = {}
+    times, counts = {}, {}
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             times[evt.key] = evt.self_device_time_total / 1e3 / runs
-    return times, wall
+            counts[evt.key] = evt.count
+    return times, wall, counts
 
 
 def device_ms(fn, kernel, flush, runs=20, attempts=3):
     """The device time of one call of ``fn``: of the kernel whose name
     contains ``kernel`` or, with ``kernel=None``, of every kernel but the
-    flush's fill (of bytes), with ``flush()`` before each call.  A profile
-    that holds no device activity at all (the profiler now and then returns
-    an empty trace) is taken again, up to ``attempts`` times."""
+    flush's own, with ``flush()`` before each call.  A profile that holds
+    no device activity at all, or fewer launches of ``kernel`` than calls
+    (the profiler now and then drops a trace or part of one), is taken
+    again, up to ``attempts`` times."""
     for _ in range(attempts):
-        times, _ = kernel_times(fn, flush, runs)
-        if times:
+        times, _, counts = kernel_times(fn, flush, runs)
+        if times and (not kernel or sum(
+                n for name, n in counts.items() if kernel in name) >= runs):
             break
+    skip = flush_kernels(flush) if flush is not None else ()
     hits = [ms for name, ms in times.items()
-            if (kernel in name if kernel
-                else "FillFunctor<unsigned char>" not in name)]
+            if (kernel in name if kernel else name not in skip)]
     if not hits:
         raise AssertionError(f"the profiler saw no {kernel} kernel: "
                              f"{sorted(times)}")
     return sum(hits)
+
+
+@functools.lru_cache(maxsize=None)
+def flush_kernels(flush):
+    """The names of the kernels that ``flush()`` launches."""
+    names = set(one_call_kernels(flush))
+    if not names:
+        raise AssertionError("the profiler saw no kernel of the L2 flush")
+    return names
 
 
 def bound_ms(n_bytes, n_ops, peak_ops):
@@ -297,9 +319,56 @@ def max_count_err(out, ref):
                for a, b in zip(out, ref))
 
 
-def kernel_phase(device, l2_flush):
+def one_call_kernels(fn, attempts=3):
+    """The device activities of one warm call of ``fn`` (kernels, and
+    copies or fills if any), name -> count, from ``torch.profiler``; an
+    empty trace is taken again, up to ``attempts`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = {evt.key: evt.count for evt in prof.key_averages()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA}
+        if kernels:
+            break
+    return kernels
+
+
+def confusion_library(logits, pred, gt, num_classes):
+    """The yardsticks of the confusion kernel: ``torch.argmax`` over the
+    classes (K1's first call) and ``torch.bincount`` of gt * C + pred over
+    the valid pixels (K1's second call, and K2's one), whose (C, C)
+    confusion matrix holds the three counts.  Each as a function of no
+    arguments, and the counts from the matrix."""
+    valid = (gt != IGNORE) & (gt >= 0) & (gt < num_classes)
+    pairs = gt[valid].long() * num_classes + pred[valid].long()
+
+    def argmax():
+        return torch.argmax(logits, dim=1)
+
+    def bincount():
+        return torch.bincount(pairs, minlength=num_classes ** 2)
+
+    matrix = bincount().view(num_classes, num_classes).float()  # [gt, pred]
+    return argmax, bincount, (matrix.diagonal(), matrix.sum(0),
+                              matrix.sum(1))
+
+
+def kernel_phase(device, l2_flush, l2_read):
+    """The confusion kernel against its plain version and its yardsticks,
+    each timed call after the 96 MB write of ``l2_flush`` (as in the other
+    phases).  That write leaves the L2 full of dirty lines, which a kernel
+    reading 17-40 MB (C = 2) must write back as it reads; so the kernel's
+    device time is also taken after a read of ``l2_read`` that leaves the
+    L2 clean (``*_clean_l2``).  The rows, and the kernel instances
+    launched (name -> launches)."""
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
+    confusion.instances.clear()
     for (n, c, h, w), num_classes, dtype in KERNEL_SHAPES:
         logits = torch.randn((n, c, h, w), generator=gen, device=device,
                              dtype=dtype)
@@ -314,12 +383,34 @@ def kernel_phase(device, l2_flush):
         label_err = max_count_err(
             confusion.confusion_histograms_from_labels(*label_args),
             confusion.histograms_from_labels_plain(*label_args))
+        argmax, bincount, library_counts = confusion_library(
+            logits, pred, gt, num_classes)
+        library_err = max_count_err(library_counts,
+                                    confusion.histograms_plain(*args))
         torch.cuda.synchronize()
-        if err != 0 or label_err != 0:
+        if err != 0 or label_err != 0 or library_err != 0:
             raise AssertionError(
                 f"kernel != plain at {(n, c, h, w)} {dtype}: max count error "
-                f"{err} (logits entry), {label_err} (labels entry)")
-        flush = l2_flush.zero_
+                f"{err} (logits entry), {label_err} (labels entry), "
+                f"{library_err} (argmax + bincount)")
+
+        def logits_call():
+            return confusion.confusion_histograms(*args)
+
+        def labels_call():
+            return confusion.confusion_histograms_from_labels(*label_args)
+
+        # one call of each entry is one device kernel: no fill, no cast
+        calls = {}
+        for entry, fn in (("logits", logits_call), ("labels", labels_call)):
+            calls[entry] = one_call_kernels(fn)
+            if (len(calls[entry]) != 1
+                    or "confusion_kernel" not in next(iter(calls[entry]))
+                    or list(calls[entry].values()) != [1]):
+                raise AssertionError(f"one {entry} call at {(n, c, h, w)} "
+                                     f"{dtype} ran {calls[entry]}, not one "
+                                     f"confusion kernel")
+        flush, clean = l2_flush.zero_, l2_read.max
         counts_bytes = gt.numel() * 4 + 3 * num_classes * 4
         bound, bound_by = bound_ms(
             logits.numel() * logits.element_size() + counts_bytes,
@@ -328,28 +419,48 @@ def kernel_phase(device, l2_flush):
                                    PEAK_FLOPS[torch.float32])
         row = dict(shape=[n, c, h, w], dtype=str(dtype).replace("torch.", ""),
                    max_abs_err=err, labels_max_abs_err=label_err,
-                   ms=cuda_ms(lambda: confusion.confusion_histograms(*args),
-                              flush),
-                   device_ms=device_ms(
-                       lambda: confusion.confusion_histograms(*args),
-                       "confusion_kernel", flush),
+                   one_call=calls,
+                   ms=cuda_ms(logits_call, flush),
+                   device_ms=device_ms(logits_call, "confusion_kernel",
+                                       flush),
+                   device_ms_clean_l2=device_ms(logits_call,
+                                                "confusion_kernel", clean),
                    plain_ms=cuda_ms(lambda: confusion.histograms_plain(*args),
                                     flush),
-                   labels_ms=cuda_ms(
-                       lambda: confusion.confusion_histograms_from_labels(
-                           *label_args), flush),
-                   labels_device_ms=device_ms(
-                       lambda: confusion.confusion_histograms_from_labels(
-                           *label_args), "confusion_kernel", flush),
+                   argmax_ms=cuda_ms(argmax, flush),
+                   argmax_device_ms=device_ms(argmax, None, flush),
+                   bincount_ms=cuda_ms(bincount, flush),
+                   bincount_device_ms=device_ms(bincount, None, flush),
+                   labels_ms=cuda_ms(labels_call, flush),
+                   labels_device_ms=device_ms(labels_call, "confusion_kernel",
+                                              flush),
+                   labels_device_ms_clean_l2=device_ms(
+                       labels_call, "confusion_kernel", clean),
                    labels_plain_ms=cuda_ms(
                        lambda: confusion.histograms_from_labels_plain(
                            *label_args), flush),
                    bound_ms=bound, bound_by=bound_by,
                    labels_bound_ms=labels_bound)
+        # K1's yardstick is two calls (argmax, then bincount), K2's one
+        row.update(
+            library_ms=row["argmax_ms"] + row["bincount_ms"],
+            library_device_ms=(row["argmax_device_ms"]
+                               + row["bincount_device_ms"]),
+            labels_library_ms=row["bincount_ms"],
+            labels_library_device_ms=row["bincount_device_ms"],
+            bound_share=bound / row["device_ms"],
+            bound_share_clean_l2=bound / row["device_ms_clean_l2"],
+            labels_bound_share=labels_bound / row["labels_device_ms"],
+            labels_bound_share_clean_l2=(labels_bound
+                                         / row["labels_device_ms_clean_l2"]))
         print("kernel:", json.dumps(row), flush=True)
+        shares = {k: v for k, v in row.items() if "bound_share" in k}
+        if max(shares.values()) > 1:
+            raise AssertionError(f"a bound share above 100 % at "
+                                 f"{(n, c, h, w)} {dtype}: {shares}")
         rows.append(row)
-        del logits, gt, pred, args, label_args
-    return rows
+        del logits, gt, pred, args, label_args, argmax, bincount
+    return rows, dict(confusion.instances)
 
 
 def projection_views(gen, device, dtype, n, h, lq, lk, d):
@@ -589,6 +700,7 @@ def reset_counts():
                    resize_backward.launches):
         for key in counts:
             counts[key] = 0
+    confusion.instances.clear()
 
 
 def slice_phase(device):
@@ -614,17 +726,19 @@ def slice_phase(device):
             evaluator.process(0, {mode: probs}, {"ori_gt": masks})
     torch.cuda.synchronize()
     launches = dict(confusion.launches)
+    instances = dict(confusion.instances)
     metrics = evaluator.compute_metrics()
     check_metrics(metrics)
     if launches["logits"] == 0:
         raise AssertionError("the evaluator never launched the kernel")
     print("slice: " + json.dumps(dict(
         batch=list(x_nchw.shape), ms_per_batch=latency, launches=launches,
-        metrics=summarize(metrics))), flush=True)
+        confusion_instances=instances, metrics=summarize(metrics))),
+        flush=True)
     for mode, test_cfg in (("whole", dict(mode="whole")), ("slide", SLIDE)):
         model.test_cfg = test_cfg
         print_breakdown(f"deeplabv3 {mode}", lambda: model.inference(x_nchw))
-    return model, x_nchw, launches
+    return model, x_nchw, launches, instances
 
 
 def kernel_class(name):
@@ -663,7 +777,7 @@ def kernel_class(name):
 def print_breakdown(what, fn):
     """Device time per kernel class of one ``fn()`` under the profiler."""
     with torch.no_grad():
-        times, wall = kernel_times(fn)
+        times, wall, _ = kernel_times(fn)
     busy = sum(times.values())
     classes = {}
     for name, ms in times.items():
@@ -709,7 +823,8 @@ def serve_setr(model, amp):
                      else ("forward", "forward_bf16")))
     splits = flash_attention.launches["split_bf16x3"]
     launches = dict(flash=flash, split=splits,
-                    confusion=confusion.launches["logits"])
+                    confusion=confusion.launches["logits"],
+                    confusion_instances=dict(confusion.instances))
     metrics = evaluator.compute_metrics()
     check_metrics(metrics)
     if (flash != SETR_LAYERS * forwards or other != 0
@@ -1270,7 +1385,10 @@ def main():
                                    (*FLASH_BWD_KERNEL[torch.float32],
                                     *FLASH_BWD_KERNEL[torch.bfloat16])
                                    for d in d_all]),
-            ("resize backward", libs[3], ["resize_backward_kernel"])):
+            ("resize backward", libs[3], ["resize_backward_kernel"]),
+            # every instance (dtype, entry, register slots or shared bins,
+            # packets or one pixel) under one name: the most of any
+            ("confusion", libs[0], ["confusion_kernel"])):
         usage = resource_usage(lib)
         print(f"{what} kernels resources: " + json.dumps(usage), flush=True)
         spills = [name for name, use in usage.items()
@@ -1282,12 +1400,14 @@ def main():
                                  f"{spills}")
 
     l2_flush = torch.empty(96 << 20, dtype=torch.uint8, device=device)
-    rows = kernel_phase(device, l2_flush)
+    l2_read = torch.empty(96 << 20, dtype=torch.uint8, device=device)
+    rows, held_instances = kernel_phase(device, l2_flush, l2_read)
+    del l2_read
     flash_rows = flash_phase(device, l2_flush)
     bwd_rows = flash_backward_phase(device, l2_flush)
     resize_rows = resize_backward_phase(device, l2_flush)
     del l2_flush
-    model, x_nchw, launches = slice_phase(device)
+    model, x_nchw, launches, instances = slice_phase(device)
     cpu_agreement_phase(model, x_nchw, *SLIDE["crop_size"], "deeplabv3")
     del model, x_nchw
     setr, setr_x, setr_launches = setr_slice_phase(device)
@@ -1299,6 +1419,14 @@ def main():
     train_launches = setr_train_phase(device)
     setr_train_agreement_phase(device)
     amp_train_launches = setr_train_phase(device, amp=True)
+    # every confusion instance of a main path was held against the plain
+    # version in the kernel phase
+    path_instances = {*instances, *setr_launches["confusion_instances"],
+                      *amp_launches["confusion_instances"]}
+    if not path_instances <= set(held_instances):
+        raise AssertionError(f"confusion instances of a main path that the "
+                             f"kernel phase never held: "
+                             f"{sorted(path_instances - set(held_instances))}")
 
     flagship, setr_row = rows[0], flash_rows[0]
     resize_row = next(r for r in resize_rows
@@ -1360,13 +1488,27 @@ def main():
         "also_replaces": "image_segmentation_lab_tpu/ops/pallas/"
                          "confusion.py:98",
         "launches": launches["logits"] + launches["labels"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max(max(r["max_abs_err"], r["labels_max_abs_err"])
+                           for r in rows),
         "ms": flagship["ms"],
         "device_ms": flagship["device_ms"],
+        # after a flush that reads, leaving the L2 clean
+        "device_ms_clean_l2": flagship["device_ms_clean_l2"],
         "plain_ms": flagship["plain_ms"],
         "bound_ms": flagship["bound_ms"],
         "bound_by": flagship["bound_by"],
-        "library_ms": None,
+        # torch.argmax, then torch.bincount of the (gt, pred) pairs
+        "library_ms": flagship["library_ms"],
+        "library_device_ms": flagship["library_device_ms"],
+        # the labels entry (K2) at the same shape; its yardstick is the
+        # bincount alone
+        "labels_ms": flagship["labels_ms"],
+        "labels_device_ms": flagship["labels_device_ms"],
+        "labels_device_ms_clean_l2": flagship["labels_device_ms_clean_l2"],
+        "labels_plain_ms": flagship["labels_plain_ms"],
+        "labels_bound_ms": flagship["labels_bound_ms"],
+        "labels_library_ms": flagship["labels_library_ms"],
+        "labels_library_device_ms": flagship["labels_library_device_ms"],
     }, {
         "name": "flash_attention_forward",
         "route": "cuda",

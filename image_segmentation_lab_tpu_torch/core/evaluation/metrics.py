@@ -2,9 +2,11 @@
 ``core/evaluation/metrics.py``).
 
 ``process`` takes per-head NCHW logits already at label size and counts
-intersection/union/prediction/label per class on the logits' device with
+intersection/prediction/label per class on the logits' device with
 ``ops.confusion.confusion_histograms`` (the hand-written kernel on a CUDA
-tensor); the running sums and every metric are float64 on the host.
+tensor): the labels cross to the device once per batch, and each head's
+``(3, C)`` counts come back to the host in one copy.  The running sums and
+every metric are float64 on the host.
 
 Not ported yet: the ragged path for per-image label sizes, the prediction
 collages (``output_dir``) and ``--save-pred`` (``save_pred_dir``); they need
@@ -59,9 +61,10 @@ class SegEvaluator:
         # per-head running sums: [inter, union, pred, label]
         self.results: Dict[str, List[np.ndarray]] = {}
 
-    def _accumulate(self, head: str, inter, pred, label):
-        inter, pred, label = (t.double().cpu().numpy()
-                              for t in (inter, pred, label))
+    def _accumulate(self, head: str, counts: torch.Tensor):
+        """Add one batch's ``(3, C)`` float32 counts (intersection,
+        prediction, label) to the head's float64 sums."""
+        inter, pred, label = counts.cpu().numpy().astype(np.float64)
         if head not in self.results:
             self.results[head] = [np.zeros(self.num_classes, np.float64)
                                   for _ in range(4)]
@@ -81,19 +84,23 @@ class SegEvaluator:
             raise NotImplementedError(
                 "per-image label sizes (the ragged host path) are not "
                 "ported yet")
+        labels = torch.as_tensor(labels).to(torch.int32)
+        gt = None  # the labels on the logits' device, copied once a batch
+
+        def count(head, logits):
+            nonlocal gt
+            if gt is None:
+                gt = labels.to(logits.device).contiguous()
+            self._accumulate(head, confusion_histograms(
+                logits.contiguous(), gt, self.num_classes,
+                self.ignore_index))
+
         for head, value in pred_batch.items():
             if isinstance(value, dict):
                 for sub, v in value.items():
-                    self._process_one(f"{head}_{sub}", v, labels)
+                    count(f"{head}_{sub}", v)
             else:
-                self._process_one(head, value, labels)
-
-    def _process_one(self, head, logits, labels):
-        gt = torch.as_tensor(labels).to(device=logits.device,
-                                        dtype=torch.int32).contiguous()
-        inter, pred_h, label_h = confusion_histograms(
-            logits.contiguous(), gt, self.num_classes, self.ignore_index)
-        self._accumulate(head, inter, pred_h, label_h)
+                count(head, value)
 
     def compute_metrics(self):
         metrics_results = {}

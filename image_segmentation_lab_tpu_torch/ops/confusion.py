@@ -6,12 +6,14 @@ Two entries, one kernel (``csrc/confusion.cu``):
 * ``confusion_histograms(logits, gt, ...)``: fused argmax over NCHW logits;
 * ``confusion_histograms_from_labels(pred, gt, ...)``: from class maps.
 
-Each returns ``(area_intersect, area_pred, area_label)``, three
-``(num_classes,)`` float32 tensors, counted over valid pixels
-(``gt != ignore_index`` and ``0 <= gt < num_classes``).  For a CPU tensor
-the wrapper computes the plain PyTorch version; for a CUDA tensor it
-launches the kernel or raises.  There is no regime gate: the JAX package's
-gate was measured on a TPU.
+Each returns one ``(3, num_classes)`` float32 tensor whose rows are
+``area_intersect``, ``area_pred`` and ``area_label`` counted over valid
+pixels (``gt != ignore_index`` and ``0 <= gt < num_classes``), so
+``inter, pred, label = confusion_histograms(...)`` unpacks them.  For a
+CPU tensor the wrapper computes the plain PyTorch version; for a CUDA
+tensor it launches the kernel or raises: one device kernel per call,
+which writes the float32 counts itself (no fill, no cast).  There is no regime gate: the JAX package's gate was measured on a
+TPU.
 
 The kernel is compiled at first use by ``ops/nvcc_build.py``.
 """
@@ -19,38 +21,46 @@ The kernel is compiled at first use by ``ops/nvcc_build.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
-
 import torch
 
 from .nvcc_build import load_library
 
-# per-block shared-memory bins [3][num_classes] stay within the 48 KB that
-# needs no opt-in
+# a CTA's shared-memory bins [3][num_classes] stay within 48 KB
 MAX_CLASSES = 4096
+# int32 of the CTAs' partial rows, allocated per call (the grid never has
+# more rows than fit)
+PARTIAL_INTS = 1 << 18
+# the kernel's entry codes (csrc/confusion.cu)
+_ENTRY = {torch.float32: 0, torch.bfloat16: 1, "labels": 2}
 
-# launches per entry, counted where the kernel is launched and nowhere else
+# launches per entry, counted where the kernel is launched and nowhere
+# else, and per kernel instance (``instance_name``)
 launches = {"logits": 0, "labels": 0}
+instances = {}
 _lib = None
+# (device index, stream) -> the stream's ticket, one int32 the kernel's
+# last CTA draws and resets to 0
+_tickets = {}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``confusion.cu``."""
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.confusion_histograms.argtypes = [i32, ptr, ptr, i64, i64, i32, i32,
+                                         i32, ptr, ptr, i64, ptr, i32, ptr,
+                                         ctypes.POINTER(i32)]
+    lib.confusion_histograms.restype = i32
+    lib.confusion_error_string.argtypes = [i32]
+    lib.confusion_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def build_library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = load_library("confusion.cu")
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for name in ("confusion_from_logits_f32", "confusion_from_logits_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, i64, i64, i32, i32, i32, ptr, ptr]
-        fn.restype = i32
-    lib.confusion_from_labels.argtypes = [ptr, ptr, i64, i32, i32, ptr, ptr]
-    lib.confusion_from_labels.restype = i32
-    lib.confusion_error_string.argtypes = [i32]
-    lib.confusion_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+    if _lib is None:
+        _lib = bind(load_library("confusion.cu"))
+    return _lib
 
 
 # ------------------------------------------------------------ plain version
@@ -74,6 +84,15 @@ def histograms_plain(logits, gt, num_classes: int, ignore_index: int):
 
 
 # ------------------------------------------------------------ wrappers
+def instance_name(code: int) -> str:
+    """The kernel instance of a launch's code (``csrc/confusion.cu``):
+    entry, register slots or shared bins, 16-byte packets or one pixel."""
+    entry, slots, vec = code // 100, code // 10 % 10, code % 10
+    return (f"{('float32', 'bfloat16', 'labels')[entry]}/"
+            f"{f'{slots} slots' if slots else 'shared'}/"
+            f"{'packets' if vec else 'one pixel'}")
+
+
 def _check_common(x, gt, num_classes: int):
     if gt.dtype != torch.int32:
         raise TypeError(f"gt must be int32, got {gt.dtype}")
@@ -92,25 +111,38 @@ def _check_common(x, gt, num_classes: int):
         raise ValueError("the kernel needs contiguous inputs")
 
 
-def _launch(entry: str, fn, args, device, num_classes: int):
-    out = torch.zeros((3, num_classes), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, out.data_ptr(), stream)
+def _launch(entry: str, code: int, src, gt, hw: int, channels: int,
+            num_classes: int, ignore_index: int) -> torch.Tensor:
+    lib = build_library()
+    device = gt.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ticket = _tickets.get((device.index, stream))
+    if ticket is None:  # the one fill, at a stream's first call
+        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        _tickets[(device.index, stream)] = ticket
+    partials = torch.empty(PARTIAL_INTS, dtype=torch.int32, device=device)
+    out = torch.empty((3, num_classes), dtype=torch.float32, device=device)
+    instance = ctypes.c_int(-1)
+    err = lib.confusion_histograms(
+        code, src.data_ptr(), gt.data_ptr(), gt.numel(), hw, channels,
+        num_classes, ignore_index, ticket.data_ptr(), partials.data_ptr(),
+        partials.numel(), out.data_ptr(), device.index, stream,
+        ctypes.byref(instance))
     if err != 0:
         raise RuntimeError(
             f"confusion kernel launch failed: "
-            f"{build_library().confusion_error_string(err).decode()}")
+            f"{lib.confusion_error_string(err).decode()}")
     launches[entry] += 1
-    out = out.to(torch.float32)
-    return out[0], out[1], out[2]
+    name = instance_name(instance.value)
+    instances[name] = instances.get(name, 0) + 1
+    return out
 
 
 def confusion_histograms(logits: torch.Tensor, gt: torch.Tensor,
-                         num_classes: int,
-                         ignore_index: int) -> Tuple[torch.Tensor, ...]:
-    """Counts from ``(N, C, H, W)`` float32/bfloat16 logits (argmax over C,
-    C >= num_classes) and ``(N, H, W)`` int32 labels."""
+                         num_classes: int, ignore_index: int) -> torch.Tensor:
+    """``(3, num_classes)`` counts from ``(N, C, H, W)`` float32/bfloat16
+    logits (argmax over C, C >= num_classes) and ``(N, H, W)`` int32
+    labels."""
     if logits.dim() != 4 or gt.shape != (logits.shape[0], *logits.shape[2:]):
         raise ValueError(f"expected (N, C, H, W) logits and (N, H, W) gt, "
                          f"got {tuple(logits.shape)} and {tuple(gt.shape)}")
@@ -122,21 +154,18 @@ def confusion_histograms(logits: torch.Tensor, gt: torch.Tensor,
                          f"classes")
     _check_common(logits, gt, num_classes)
     if logits.device.type == "cpu":
-        return histograms_plain(logits, gt, num_classes, ignore_index)
-    lib = build_library()
-    fn = (lib.confusion_from_logits_f32 if logits.dtype == torch.float32
-          else lib.confusion_from_logits_bf16)
+        return torch.stack(histograms_plain(logits, gt, num_classes,
+                                            ignore_index))
     n, c, h, w = logits.shape
-    return _launch("logits", fn,
-                   (logits.data_ptr(), gt.data_ptr(), n, h * w, c,
-                    num_classes, ignore_index), logits.device, num_classes)
+    return _launch("logits", _ENTRY[logits.dtype], logits, gt, h * w, c,
+                   num_classes, ignore_index)
 
 
 def confusion_histograms_from_labels(pred: torch.Tensor, gt: torch.Tensor,
                                      num_classes: int,
-                                     ignore_index: int
-                                     ) -> Tuple[torch.Tensor, ...]:
-    """Counts from int32 class maps ``pred`` and ``gt`` of one shape."""
+                                     ignore_index: int) -> torch.Tensor:
+    """``(3, num_classes)`` counts from int32 class maps ``pred`` and
+    ``gt`` of one shape."""
     if pred.shape != gt.shape:
         raise ValueError(f"pred {tuple(pred.shape)} and gt "
                          f"{tuple(gt.shape)} differ in shape")
@@ -144,9 +173,8 @@ def confusion_histograms_from_labels(pred: torch.Tensor, gt: torch.Tensor,
         raise TypeError(f"pred must be int32, got {pred.dtype}")
     _check_common(pred, gt, num_classes)
     if pred.device.type == "cpu":
-        return histograms_from_labels_plain(pred, gt, num_classes,
-                                            ignore_index)
-    lib = build_library()
-    return _launch("labels", lib.confusion_from_labels,
-                   (pred.data_ptr(), gt.data_ptr(), gt.numel(), num_classes,
-                    ignore_index), pred.device, num_classes)
+        return torch.stack(histograms_from_labels_plain(
+            pred, gt, num_classes, ignore_index))
+    return _launch("labels", _ENTRY["labels"], pred, gt, gt.numel(), 1,
+                   num_classes, ignore_index)
+

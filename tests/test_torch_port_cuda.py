@@ -39,15 +39,50 @@ def cuda():
     return torch.device("cuda")
 
 
-# (N, C, H, W), num_classes, ignore_index, dtype
+# (N, C, H, W), num_classes, ignore_index, dtype.  The kernel reads 16-byte
+# packets where H*W and both base pointers allow it (H*W a multiple of 4 in
+# float32, of 8 in bf16), else one pixel at a time; it counts in registers
+# up to 8 channels (classes, for the labels entry), in per-warp shared rows
+# up to 256 classes and in one set of shared bins above.  A small input
+# ("c2_one_cta", "c150", "c4096", "empty", ...) runs one CTA, which writes
+# its counts itself; the others run several, whose last sums the partial
+# rows ("_grid": on the shared paths)
 CASES = {
-    "flagship_c2": ((2, 2, 67, 131), 2, 255, torch.float32),
+    "flagship_c2": ((2, 2, 67, 131), 2, 255, torch.float32),  # H*W odd
+    "c2_aligned": ((2, 2, 48, 64), 2, 255, torch.float32),
+    "c2_aligned_bf16": ((2, 2, 40, 56), 2, 255, torch.bfloat16),
+    "c2_one_cta": ((1, 2, 16, 32), 2, 255, torch.float32),
+    "c2_bf16_grid": ((2, 2, 64, 96), 2, 255, torch.bfloat16),
+    "c1": ((2, 1, 24, 40), 1, 255, torch.float32),
+    "c8": ((2, 8, 32, 36), 8, 255, torch.float32),  # the last in registers
+    "c9": ((2, 9, 32, 36), 9, 255, torch.float32),  # the first in shared
+    "c9_bf16": ((2, 9, 32, 36), 9, 255, torch.bfloat16),
     "c19_bf16": ((2, 19, 33, 65), 19, 255, torch.bfloat16),
+    "c150": ((1, 150, 24, 40), 150, 255, torch.float32),
+    "c150_grid": ((1, 150, 96, 96), 150, 255, torch.float32),
+    "c256": ((1, 256, 8, 8), 256, -1, torch.float32),  # the last per warp
+    "c257": ((1, 257, 8, 8), 257, -1, torch.float32),  # one set of bins
+    "c4096": ((1, 4096, 4, 8), 4096, 255, torch.float32),
+    "c4096_grid": ((1, 4096, 16, 192), 4096, 255, torch.float32),
     "ignore_neg1": ((3, 5, 97, 131), 5, -1, torch.float32),
     "channels_gt_classes": ((1, 7, 40, 40), 4, 255, torch.float32),
     "ties": ((2, 4, 50, 50), 4, 255, torch.float32),
     "empty": ((0, 2, 8, 8), 2, 255, torch.float32),
+    "all_ignored": ((2, 2, 32, 32), 2, 255, torch.float32),
+    # every input a contiguous view whose data starts 4 bytes past a
+    # 16-byte boundary, though H*W would allow packets
+    "view_off_16_bytes": ((3, 2, 16, 20), 2, 255, torch.float32),
 }
+
+
+def off_16_bytes(t):
+    """A contiguous copy of ``t`` whose data starts one element (4 bytes)
+    past its buffer's start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
 
 
 def make_inputs(name, device):
@@ -59,8 +94,13 @@ def make_inputs(name, device):
         logits = torch.randn((n, c, h, w), generator=g)
     gt = torch.randint(-1, num_classes + 2, (n, h, w), generator=g)
     gt[torch.rand((n, h, w), generator=g) < 0.2] = ignore
-    return (logits.to(device=device, dtype=dtype),
-            gt.to(device=device, dtype=torch.int32), num_classes, ignore)
+    if name == "all_ignored":
+        gt[:] = ignore
+    logits = logits.to(device=device, dtype=dtype)
+    gt = gt.to(device=device, dtype=torch.int32)
+    if name == "view_off_16_bytes":
+        logits, gt = off_16_bytes(logits), off_16_bytes(gt)
+    return logits, gt, num_classes, ignore
 
 
 def assert_counts_equal(out, ref):
@@ -70,19 +110,64 @@ def assert_counts_equal(out, ref):
                                       err_msg=what)
 
 
+def label_inputs(name, device):
+    """Class maps for the labels entry, with predictions out of range;
+    laid out as the case's logits are."""
+    logits, gt, num_classes, ignore = make_inputs(name, device)
+    g = torch.Generator(device="cpu").manual_seed(case_seed(name) + 1)
+    pred = torch.randint(-2, num_classes + 2, gt.shape, generator=g)
+    pred = pred.to(device=device, dtype=torch.int32)
+    if name == "view_off_16_bytes":
+        pred = off_16_bytes(pred)
+    return pred, gt, num_classes, ignore
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_matches_plain(cuda, name):
+    """Both entries equal the plain version, and a second call gives the
+    same counts and leaves the ticket at 0."""
+    args = make_inputs(name, cuda)
+    ref = confusion.histograms_plain(*args)
+    label_args = label_inputs(name, cuda)
+    label_ref = confusion.histograms_from_labels_plain(*label_args)
+    for _ in range(2):
+        assert_counts_equal(confusion.confusion_histograms(*args), ref)
+        assert_counts_equal(
+            confusion.confusion_histograms_from_labels(*label_args),
+            label_ref)
+    device = args[1].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    assert int(confusion._tickets[(device.index, stream)][0]) == 0
+
+
+@pytest.mark.parametrize("name", ["c2_aligned", "c9", "c150_grid"])
+def test_calls_on_two_streams_in_a_row(cuda, name):
+    """Each stream has its own ticket: calls alternating between two
+    streams each give the plain version's counts."""
+    args = make_inputs(name, cuda)
+    ref = confusion.histograms_plain(*args)
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    outs = []
+    for stream in streams + streams:
+        stream.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(stream):
+            outs.append(confusion.confusion_histograms(*args))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert_counts_equal(out, ref)
+
+
+@pytest.mark.parametrize("name", ["c2_aligned", "c2_aligned_bf16", "c8",
+                                  "c9", "view_off_16_bytes"])
+def test_nan_is_the_maximum_on_every_path(cuda, name):
+    """NaN logits on the packet and scalar paths, in registers and in
+    shared memory: the first NaN wins, as in torch.argmax."""
     logits, gt, num_classes, ignore = make_inputs(name, cuda)
+    logits[:, -1, ::3] = float("nan")
+    logits[:, 0, ::7] = float("nan")
     assert_counts_equal(
         confusion.confusion_histograms(logits, gt, num_classes, ignore),
         confusion.histograms_plain(logits, gt, num_classes, ignore))
-    pred = torch.randint(-2, num_classes + 2, gt.shape, device=cuda,
-                         dtype=torch.int32)
-    assert_counts_equal(
-        confusion.confusion_histograms_from_labels(pred, gt, num_classes,
-                                                   ignore),
-        confusion.histograms_from_labels_plain(pred, gt, num_classes,
-                                               ignore))
 
 
 def test_nan_is_the_maximum_as_in_torch_argmax(cuda):
@@ -95,12 +180,17 @@ def test_nan_is_the_maximum_as_in_torch_argmax(cuda):
 
 
 def test_each_entry_counts_its_launches(cuda, monkeypatch):
+    """Launches per entry, and per kernel instance (H*W odd: one pixel at a
+    time, two register slots)."""
     monkeypatch.setattr(confusion, "launches", {"logits": 0, "labels": 0})
+    monkeypatch.setattr(confusion, "instances", {})
     logits, gt, num_classes, ignore = make_inputs("flagship_c2", cuda)
     confusion.confusion_histograms(logits, gt, num_classes, ignore)
     confusion.confusion_histograms(logits, gt, num_classes, ignore)
     confusion.confusion_histograms_from_labels(gt, gt, num_classes, ignore)
     assert confusion.launches == {"logits": 2, "labels": 1}
+    assert confusion.instances == {"float32/2 slots/one pixel": 2,
+                                   "labels/2 slots/one pixel": 1}
 
 
 def test_cuda_tensor_without_library_raises(cuda, monkeypatch, tmp_path):

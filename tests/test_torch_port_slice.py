@@ -102,20 +102,27 @@ def test_predict_binary_head():
 
 
 def test_evaluator_metrics(slide_logits):
+    """Two heads, ``decode`` and a dict of aux heads, over three batches
+    that accumulate: the port's metrics equal the JAX SegEvaluator's."""
     ref, out = slide_logits
     gt = np.random.RandomState(3).randint(0, 2, ref.shape[:3])
     gt[:, :5] = 255
+    aux = np.random.RandomState(4).randn(*ref.shape).astype(np.float32)
     kw = dict(epoch=0, num_classes=2, class_names=["bg", "fg"],
               palette=[[0, 0, 0], [255, 255, 255]], show_result=False)
     jev, pev = JSegEvaluator(**kw), SegEvaluator(**kw)
-    for i in range(2):  # two batches accumulate
-        jev.process(i, {"decode": ref[i:i + 1]}, {"ori_gt": gt[i:i + 1]})
-        pev.process(i, {"decode": out[i:i + 1]}, {"ori_gt": gt[i:i + 1]})
-    jm, pm = (ev.compute_metrics()["decode"] for ev in (jev, pev))
-    assert set(jm) == set(pm) and "mIoU" in pm
-    for key in jm:
-        np.testing.assert_allclose(pm[key], jm[key], rtol=0, atol=1e-6,
-                                   err_msg=key)
+    for i, b in enumerate((slice(0, 1), slice(1, 2), slice(0, 2))):
+        jev.process(i, {"decode": ref[b], "aux": {0: aux[b]}},
+                    {"ori_gt": gt[b]})
+        pev.process(i, {"decode": out[b], "aux": {0: to_nchw(aux[b])}},
+                    {"ori_gt": gt[b]})
+    jm, pm = jev.compute_metrics(), pev.compute_metrics()
+    assert set(jm) == set(pm) == {"decode", "aux_0"}
+    for head in jm:
+        assert set(jm[head]) == set(pm[head]) and "mIoU" in pm[head]
+        for key in jm[head]:
+            np.testing.assert_allclose(pm[head][key], jm[head][key], rtol=0,
+                                       atol=1e-6, err_msg=f"{head} {key}")
 
 
 def test_init_model_loads_a_jax_checkpoint(tmp_path):
