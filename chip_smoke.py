@@ -199,6 +199,12 @@ SETR_RESIZES = [((8, 256, 40, 40), (80, 80)),
                 ((8, 2, 320, 320), (640, 640)),
                 ((8, 2, 40, 40), (160, 160)),
                 ((8, 2, 160, 160), (640, 640))]
+# DeepLabV3-R50-d8's bilinear resizes under grad in its train step at 16 x
+# 512² (align_corners False): the decode and aux heads' logits (8x, 16 x 16
+# taps an element) and the ASPP image pool (a 1 x 1 input, 64 x 64 taps)
+DEEPLAB_RESIZES = [((16, 2, 64, 64), (512, 512)),
+                   ((16, 2, 64, 64), (512, 512)),
+                   ((16, 512, 1, 1), (64, 64))]
 SCHEDULE = ROOT / "configs/schedule/kvasir_training_schedule.py"
 TRAIN_BATCH, TRAIN_IMAGE_SIZE, TRAIN_STEPS = 8, 640, 10
 AGREE_BATCH, AGREE_IMAGE_SIZE = 2, 320
@@ -752,7 +758,7 @@ def kernel_class(name):
                        ("flash dq bf16", ("flash_bwd_dq_sm90_kernel",)),
                        ("flash dkv bf16", ("flash_bwd_dkv_sm90_kernel",)),
                        ("confusion", ("confusion_kernel",)),
-                       ("resize backward", ("resize_backward_kernel",)),
+                       ("resize backward", ("resize_backward",)),
                        ("batch norm", ("batch_norm", "bn_")),
                        # cuDNN's implicit-GEMM and FFT convolutions (the
                        # latter multiply in complex float, cf32 GEMMs),
@@ -1040,14 +1046,16 @@ def flash_backward_phase(device, l2_flush):
     return rows
 
 
-def resize_backward_phase(device, l2_flush):
+def resize_backward_phase(device, l2_flush,
+                          resizes=(*SETR_RESIZES, *DEEPLAB_RESIZES)):
     """The resize backward kernel against its plain version (the same
     bits), its own float32 result rounded once (bf16) and its second call
-    (the same bits), at SETR's resizes in both dtypes; times of the
-    kernel, the plain version and ``F.interpolate``'s own backward."""
+    (the same bits), at each shape of SETR's and DeepLabV3's train steps in
+    both dtypes; times of the kernel, the plain version and
+    ``F.interpolate``'s own backward."""
     gen = torch.Generator(device=device).manual_seed(3)
     rows = []
-    for (n, c, h, w), size in SETR_RESIZES:
+    for (n, c, h, w), size in dict.fromkeys(resizes):
         for dtype in (torch.float32, torch.bfloat16):
             gy = torch.randn((n, c, *size), generator=gen,
                              device=device).to(dtype)
@@ -1095,7 +1103,7 @@ def resize_backward_phase(device, l2_flush):
                 max_abs_err=0.0, vs_library_max_abs_err=lib_err,
                 max_abs_grad=float(ref.abs().max()),
                 ms=cuda_ms(kernel, flush),
-                device_ms=device_ms(kernel, "resize_backward_kernel", flush),
+                device_ms=device_ms(kernel, "resize_backward", flush),
                 plain_ms=cuda_ms(plain, flush),
                 library_ms=cuda_ms(library, flush),
                 library_device_ms=device_ms(library, None, flush),
@@ -1385,7 +1393,8 @@ def main():
                                    (*FLASH_BWD_KERNEL[torch.float32],
                                     *FLASH_BWD_KERNEL[torch.bfloat16])
                                    for d in d_all]),
-            ("resize backward", libs[3], ["resize_backward_kernel"]),
+            ("resize backward", libs[3], ["resize_backward_kernel",
+                                          "resize_backward_wide_kernel"]),
             # every instance (dtype, entry, register slots or shared bins,
             # packets or one pixel) under one name: the most of any
             ("confusion", libs[0], ["confusion_kernel"])):
