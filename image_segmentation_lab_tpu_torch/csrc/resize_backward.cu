@@ -28,21 +28,20 @@
 // same bits from call to call, and a bf16 dx is the float32 dx rounded once
 // (g and dx share a dtype: float32 or bf16).  Where no input index has more
 // than kTaps = 4 or 8 taps on either axis (every upsample up to 4x), a
-// thread first holds its taps of both axes in registers and issues all its
-// loads of g before the sums, so they are in flight together.  Indices are
+// thread first holds its taps of both axes in registers and issues all its loads of g before the sums, so they are in
+// flight together; other tables (an upsample above 4x, a large
+// downsample, a 1-pixel input) take the taps one at a time.  Indices are
 // 32-bit (the wrapper keeps the element counts below 2^31).
 //
-// Wide tables (more than 8 taps on an axis: an upsample above 4x, such as
-// DeepLabV3's 8x logits (16 x 16 taps an element) and its ASPP image pool,
-// a 1 x 1 input read by every output (64 x 64 taps at 64^2)) take one warp
-// per input element instead: lane l sums, in ascending order, the (row
-// tap, column tap) pairs k = a * col_taps + b with k = l mod 32, each step
-// rounded as above, and the 32 partial sums meet in a fixed shuffle tree
-// (lane l adds lane l + 16, then l + 8, ..., 1).  The plain version takes
-// the same order, so the bits stay equal.  Taken one at a time by a single
-// thread, as a first version did, the image pool's 4096 taps ran serially
-// in each of its 8192 threads, one plane per lane (32 CTAs on 132 SMs),
-// while the warp's lanes read neighbouring columns of one plane.
+// One at a time is far from the byte bound on wide tables but far ahead of
+// PyTorch's atomic backward.  At DeepLabV3's train-step shapes on an H100
+// (16 x 512^2): its 8x logits (16 x 16 taps an element) 0.15-0.17 ms
+// against a bound of 0.005-0.010 and PyTorch's 0.38-1.6; its ASPP image
+// pool, a 1 x 1 input read by all 64 x 64 outputs, 0.68-0.72 ms against
+// 0.020-0.040 and 61-141 ms, where each thread runs 4096 taps in series,
+// 8192 threads on 32 SMs, each load of a warp in 32 planes.  A warp per
+// input element (lanes over the tap pairs, then a shuffle tree; in the git
+// history) took 0.086-0.089 ms at both.
 //
 // What bounds it on the card: bytes.  At SETR's largest upsample (8, 256,
 // 160, 160) -> (320, 320) in bf16 it must read g (420 MB) and write dx
@@ -66,7 +65,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarp = 32;
 
 // one axis's table: input index i reads output indices idx[i * taps + a]
 // (ascending, then -1) with weights w[i * taps + a]
@@ -97,7 +95,8 @@ __device__ __forceinline__ float tap(float acc, float wr, float wc,
   return __fadd_rn(acc, __fmul_rn(__fmul_rn(wr, wc), g));
 }
 
-// kTaps: the most taps of an input index on either axis (4 or 8)
+// kTaps: the most taps of an input index on either axis (4 or 8), or 0
+// for any number, taken one at a time
 template <typename T, int kTaps>
 __global__ void __launch_bounds__(kThreads)
 resize_backward_kernel(const T* __restrict__ g, T* __restrict__ dx,
@@ -112,70 +111,50 @@ resize_backward_kernel(const T* __restrict__ g, T* __restrict__ dx,
   const float* rw = rows.w + i * rows.taps;
   const int* ci = cols.idx + j * cols.taps;
   const float* cw = cols.w + j * cols.taps;
-  const T* row[kTaps];
-  float wr[kTaps], wc[kTaps], v[kTaps][kTaps];
-  int col[kTaps];
-  bool row_in[kTaps], col_in[kTaps];
-#pragma unroll
-  for (int a = 0; a < kTaps; ++a) {
-    const int r = a < rows.taps ? __ldg(ri + a) : -1;
-    row_in[a] = r >= 0;
-    row[a] = plane + (row_in[a] ? r : 0) * out_w;
-    wr[a] = row_in[a] ? __ldg(rw + a) : 0.f;
-  }
-#pragma unroll
-  for (int b = 0; b < kTaps; ++b) {
-    const int c = b < cols.taps ? __ldg(ci + b) : -1;
-    col_in[b] = c >= 0;
-    col[b] = col_in[b] ? c : 0;
-    wc[b] = col_in[b] ? __ldg(cw + b) : 0.f;
-  }
-#pragma unroll
-  for (int a = 0; a < kTaps; ++a)
-#pragma unroll
-    for (int b = 0; b < kTaps; ++b)
-      v[a][b] = row_in[a] && col_in[b] ? to_float(row[a][col[b]]) : 0.f;
   float acc = 0.f;
+  if constexpr (kTaps == 0) {
+    for (int a = 0; a < rows.taps; ++a) {
+      const int r = __ldg(ri + a);
+      if (r < 0) break;
+      const float wr = __ldg(rw + a);
+      const T* row = plane + r * out_w;
+      for (int b = 0; b < cols.taps; ++b) {
+        const int c = __ldg(ci + b);
+        if (c < 0) break;
+        acc = tap(acc, wr, __ldg(cw + b), to_float(row[c]));
+      }
+    }
+  } else {
+    const T* row[kTaps];
+    float wr[kTaps], wc[kTaps], v[kTaps][kTaps];
+    int col[kTaps];
+    bool row_in[kTaps], col_in[kTaps];
 #pragma unroll
-  for (int a = 0; a < kTaps; ++a)
+    for (int a = 0; a < kTaps; ++a) {
+      const int r = a < rows.taps ? __ldg(ri + a) : -1;
+      row_in[a] = r >= 0;
+      row[a] = plane + (row_in[a] ? r : 0) * out_w;
+      wr[a] = row_in[a] ? __ldg(rw + a) : 0.f;
+    }
 #pragma unroll
-    for (int b = 0; b < kTaps; ++b)
-      if (row_in[a] && col_in[b]) acc = tap(acc, wr[a], wc[b], v[a][b]);
+    for (int b = 0; b < kTaps; ++b) {
+      const int c = b < cols.taps ? __ldg(ci + b) : -1;
+      col_in[b] = c >= 0;
+      col[b] = col_in[b] ? c : 0;
+      wc[b] = col_in[b] ? __ldg(cw + b) : 0.f;
+    }
+#pragma unroll
+    for (int a = 0; a < kTaps; ++a)
+#pragma unroll
+      for (int b = 0; b < kTaps; ++b)
+        v[a][b] = row_in[a] && col_in[b] ? to_float(row[a][col[b]]) : 0.f;
+#pragma unroll
+    for (int a = 0; a < kTaps; ++a)
+#pragma unroll
+      for (int b = 0; b < kTaps; ++b)
+        if (row_in[a] && col_in[b]) acc = tap(acc, wr[a], wc[b], v[a][b]);
+  }
   dx[t] = from_float<T>(acc);
-}
-
-// wide tables: one warp per input element (see the top of the file)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-resize_backward_wide_kernel(const T* __restrict__ g, T* __restrict__ dx,
-                            int total, int in_h, int in_w, int out_h,
-                            int out_w, Axis rows, Axis cols) {
-  const int e = blockIdx.x * (kThreads / kWarp) + threadIdx.x / kWarp;
-  if (e >= total) return;  // e is the same in every lane of a warp
-  const int lane = threadIdx.x % kWarp;
-  const int j = e % in_w;
-  const int i = e / in_w % in_h;
-  const T* plane = g + (int64_t)(e / in_w / in_h) * out_h * out_w;
-  const int* ri = rows.idx + i * rows.taps;
-  const float* rw = rows.w + i * rows.taps;
-  const int* ci = cols.idx + j * cols.taps;
-  const float* cw = cols.w + j * cols.taps;
-  // this lane's pairs k = a * cols.taps + b, k = lane, lane + 32, ...
-  int a = 0, b = lane;
-  while (b >= cols.taps) b -= cols.taps, ++a;
-  float acc = 0.f;
-  while (a < rows.taps) {
-    const int r = __ldg(ri + a), c = __ldg(ci + b);
-    if (r >= 0 && c >= 0)
-      acc = tap(acc, __ldg(rw + a), __ldg(cw + b),
-                to_float(plane[r * out_w + c]));
-    b += kWarp;
-    while (b >= cols.taps) b -= cols.taps, ++a;
-  }
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off /= 2)
-    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, off));
-  if (lane == 0) dx[e] = from_float<T>(acc);
 }
 
 template <typename T>
@@ -192,10 +171,8 @@ int launch(const void* g, void* dx, int total, int in_h, int in_w,
     resize_backward_kernel<T, 8><<<blocks, kThreads, 0, stream>>>(
         gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
   else
-    resize_backward_wide_kernel<T>
-        <<<(unsigned)((total + kThreads / kWarp - 1) / (kThreads / kWarp)),
-           kThreads, 0, stream>>>(gt, dxt, total, in_h, in_w, out_h, out_w,
-                                  rows, cols);
+    resize_backward_kernel<T, 0><<<blocks, kThreads, 0, stream>>>(
+        gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
   return (int)cudaGetLastError();
 }
 

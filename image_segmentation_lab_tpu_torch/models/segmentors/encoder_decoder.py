@@ -14,9 +14,13 @@ Submodules are named ``backbone``, ``neck``, ``decode_head`` and
 gives ``aux_<i>`` keys). Both run under the compute policy
 (``core/mixed_precision``): with ``bf16`` (the schedule's ``amp=True``)
 under ``torch.autocast`` to bfloat16, so the logits come out in bfloat16
-and the losses cast them to float32. Test-time augmentation (with the
-train/test dispatch of the JAX ``BaseSegmentor``) and panoptic/instance
-output are not ported yet.
+and the losses cast them to float32.
+
+Test-time augmentation: ``forward_test`` routes one image (batch) to
+``simple_test`` and a list of augmented views to ``batch_test`` (one
+``simple_test`` per view, from view 0: the reference skipped it);
+``aug_test_logits`` averages the views' probabilities.  Panoptic and
+instance output are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +57,11 @@ def gather_windows(img, origins, h_crop: int, w_crop: int):
     window-major."""
     return torch.cat([img[:, :, y1:y1 + h_crop, x1:x1 + w_crop]
                       for y1, x1 in origins], dim=0)
+
+
+def _batched(img):
+    """A ``(C, H, W)`` image as a batch of one; a batch as it is."""
+    return img[None] if img.dim() == 3 else img
 
 
 def stitch_windows(crop_logits, origins, h_crop: int, w_crop: int,
@@ -183,6 +192,50 @@ class EncoderDecoder(nn.Module):
         return torch.softmax(seg_logit, dim=1)
 
     forward = inference
+
+    def simple_test(self, img, ori_img_size=None, rescale: bool = True):
+        """Probabilities of one batch (``inference``)."""
+        return self.inference(img, ori_img_size=ori_img_size,
+                              rescale=rescale)
+
+    def batch_test(self, imgs, ori_img_size=None, rescale: bool = True):
+        """``simple_test`` of each view of a TTA list, from view 0; a list
+        ``ori_img_size`` gives one size per view."""
+        return [self.simple_test(_batched(img),
+                                 ori_img_size=(ori_img_size[i]
+                                               if isinstance(ori_img_size,
+                                                             list)
+                                               else ori_img_size),
+                                 rescale=rescale)
+                for i, img in enumerate(imgs)]
+
+    def forward_test(self, imgs, meta_infos=None, rescale: bool = True):
+        """``imgs``: a list of ``(C, H, W)`` or ``(N, C, H, W)`` tensors,
+        one per test-time augmentation; one view goes to ``simple_test``,
+        several to ``batch_test``.  ``meta_infos['ori_img_size_hw']``: one
+        size, or a list with one per view."""
+        sizes = (meta_infos or {}).get("ori_img_size_hw")
+        if isinstance(sizes, list) and len(sizes) != len(imgs):
+            raise ValueError(f"num of images ({len(imgs)}) != num of "
+                             f"ori_img_sizes ({len(sizes)})")
+        if len(imgs) == 1:
+            size = sizes[0] if isinstance(sizes, list) else sizes
+            return self.simple_test(_batched(imgs[0]), ori_img_size=size,
+                                    rescale=rescale)
+        return self.batch_test(imgs, ori_img_size=sizes, rescale=rescale)
+
+    def aug_test_logits(self, imgs, ori_img_sizes=None,
+                        rescale: bool = True):
+        """The mean of the views' probabilities (``inference`` of each)."""
+        assert rescale
+        total = None
+        for i, img in enumerate(imgs):
+            probs = self.inference(
+                _batched(img),
+                ori_img_size=ori_img_sizes[i] if ori_img_sizes else None,
+                rescale=rescale)
+            total = probs if total is None else total + probs
+        return total / len(imgs)
 
     def predict(self, img, ori_img_size=None, rescale: bool = True):
         """Probabilities → (N, H, W) int32 class map (argmax, or threshold

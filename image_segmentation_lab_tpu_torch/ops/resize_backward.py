@@ -13,16 +13,12 @@ The sums are gathers over per-axis tables (``axis_table``): for each input
 index, the output indices whose lerp reads it and their float32 weights,
 computed as ``F.interpolate``'s forward computes them, so the backward is
 that forward's transpose.  For CPU tensors the wrapper computes the plain
-version (``resize_backward_plain``: the same taps in the same order); for
-CUDA tensors it launches the kernel of ``csrc/resize_backward.cu``
-(float32 or bfloat16, built at first use by ``ops/nvcc_build.py``) or
-raises.  Both read the same tables and take every step rounded in the same
-order, so they give the same bits, and no atomics: the same bits from call
-to call.  The order: up to ``REGISTER_TAPS`` taps per axis (every upsample
-up to 4x), the (row tap, column tap) pairs one after another, row-major;
-wider tables (DeepLabV3's 8x logits, its 1 x 1 image pool) as one warp per
-input element: 32 lane sums over the pairs k = lane mod 32, ascending, then
-a fixed tree (``WARP``).
+version (``resize_backward_plain``: the same taps in the same order,
+``index_select`` per row tap); for CUDA tensors it launches the kernel of
+``csrc/resize_backward.cu`` (float32 or bfloat16, built at first use by
+``ops/nvcc_build.py``) or raises.  Both read the same tables and take
+every step rounded in the same order, so they give the same bits, and no
+atomics: the same bits from call to call.
 """
 
 from __future__ import annotations
@@ -33,16 +29,12 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .nvcc_build import load_library
 
-# launches, counted where the kernel is launched and nowhere else
-launches = {"resize_backward": 0}
-# the most taps per axis that the kernel's one-thread path takes
-# (csrc/resize_backward.cu, kTaps); wider tables take a warp per element
-REGISTER_TAPS = 8
-WARP = 32
+# launches per dtype (float32, bfloat16), counted where the kernel is
+# launched and nowhere else
+launches = {"resize_backward": 0, "resize_backward_bf16": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
@@ -125,19 +117,15 @@ def _check(g, in_size):
 
 def resize_backward_plain(g: torch.Tensor, in_size: Sequence[int],
                           align_corners: bool) -> torch.Tensor:
-    """The kernel's sums in plain torch: each tap ``acc + (w_row·w_col)·g``
-    in float32 (float64 for float64), every step rounded, padded taps left
-    out, in the kernel's order (see the module docstring); then g's
-    dtype."""
+    """The kernel's sums in plain torch: for each row tap and, within it,
+    each column tap, ``acc + (w_row·w_col)·g`` in float32 (float64 for
+    float64), every step rounded, padded taps left out; then g's dtype."""
     (in_h, in_w), (out_h, out_w) = in_size, g.shape[2:]
     acc_dtype = torch.promote_types(g.dtype, torch.float32)
     row_idx, row_w = _tables(in_h, out_h, align_corners, g.device)
     col_idx, col_w = _tables(in_w, out_w, align_corners, g.device)
-    gf = g.to(acc_dtype)
-    if max(row_idx.shape[1], col_idx.shape[1]) > REGISTER_TAPS:
-        return _warp_sums(gf, row_idx, row_w.to(acc_dtype), col_idx,
-                          col_w.to(acc_dtype)).to(g.dtype)
     col_ok, cols = col_idx >= 0, col_idx.clamp(min=0).long()
+    gf = g.to(acc_dtype)
     acc = torch.zeros((*g.shape[:2], in_h, in_w), dtype=acc_dtype,
                       device=g.device)
     for a in range(row_idx.shape[1]):
@@ -150,37 +138,6 @@ def resize_backward_plain(g: torch.Tensor, in_size: Sequence[int],
         for b in range(cols.shape[1]):
             acc = acc + terms[..., b]
     return acc.to(g.dtype)
-
-
-def _warp_sums(gf, row_idx, row_w, col_idx, col_w):
-    """The wide tables' order: the pairs k = a·col_taps + b of every input
-    element, lane k mod WARP summing its pairs in ascending k (padded pairs
-    left out), then the lanes' sums as the kernel's shuffle tree adds them
-    (lane l + lane l + off, for off = 16, 8, 4, 2, 1)."""
-    (in_h, row_taps), (in_w, col_taps) = row_idx.shape, col_idx.shape
-    # g at every pair: (N, C, in_h, in_w, row_taps, col_taps)
-    vals = gf.index_select(2, row_idx.clamp(min=0).flatten()).unflatten(
-        2, (in_h, row_taps))
-    vals = vals.index_select(4, col_idx.clamp(min=0).flatten()).unflatten(
-        4, (in_w, col_taps)).permute(0, 1, 2, 4, 3, 5)
-    weights = row_w[:, None, :, None] * col_w[None, :, None, :]
-    pairs = row_taps * col_taps
-    steps = -(-pairs // WARP)
-    pad = (0, steps * WARP - pairs)
-    terms = F.pad((weights * vals).flatten(-2), pad).unflatten(
-        -1, (steps, WARP))
-    ok = F.pad(((row_idx[:, None, :, None] >= 0)
-                & (col_idx[None, :, None, :] >= 0)).flatten(-2),
-               pad).unflatten(-1, (steps, WARP))
-    lanes = gf.new_zeros((*gf.shape[:2], in_h, in_w, WARP))
-    for step in range(steps):
-        lanes = torch.where(ok[..., step, :], lanes + terms[..., step, :],
-                            lanes)
-    off = WARP // 2
-    while off:
-        lanes = lanes[..., :off] + lanes[..., off:2 * off]
-        off //= 2
-    return lanes[..., 0]
 
 
 def resize_backward(g: torch.Tensor, in_size: Sequence[int],
@@ -212,5 +169,6 @@ def resize_backward(g: torch.Tensor, in_size: Sequence[int],
     if err != 0:
         raise RuntimeError(f"resize backward kernel launch failed: "
                            f"{lib.resize_backward_error_string(err).decode()}")
-    launches["resize_backward"] += 1
+    launches["resize_backward_bf16" if g.dtype == torch.bfloat16
+             else "resize_backward"] += 1
     return dx

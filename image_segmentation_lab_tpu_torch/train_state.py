@@ -14,11 +14,17 @@ The step reads the global compute policy, as the JAX step does:
 ``amp_policy(True)`` (the schedule's ``amp=True``) runs ``forward_train``
 under bfloat16 autocast over the float32 parameters, with no loss scaler,
 and the backward through the flash kernels in bfloat16.  The MoE aux loss
-and the eval and TTA steps are not ported yet.
+is not ported yet.
+
+``make_eval_step`` (losses and evaluator-ready logits per head, no grad)
+and ``make_tta_step`` (multi-scale and flip averaged probabilities) run
+the model in eval mode; ``binarize_channels`` makes a one-channel head's
+output argmax-able at its threshold (``head_threshold``).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -27,6 +33,8 @@ from torch import nn
 
 from .core.builder import LR_SCHEDULER, build_from_cfg, build_optimizer
 from .models.basic.drop import use_generator
+from .models.decode_heads.decode_head import DEFAULT_BINARY_THRESHOLD
+from .utils.ops import resize
 
 
 def parse_losses(losses: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
@@ -84,3 +92,85 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         return {name: value.detach() for name, value in log_vars.items()}
 
     return train_step
+
+
+def head_threshold(model) -> float:
+    """Binary-segmentation threshold of the (last) decode head."""
+    head = getattr(model, "decode_head", None)
+    if isinstance(head, (list, tuple, nn.ModuleList)) and len(head):
+        head = head[-1]
+    threshold = getattr(head, "threshold", None)
+    return DEFAULT_BINARY_THRESHOLD if threshold is None else float(threshold)
+
+
+def binarize_channels(value, threshold: float, is_probs: bool = False):
+    """Put a constant channel in front of every one-channel ``(N, 1, H,
+    W)`` output -- ``logit(t)`` for logits, ``t`` for probabilities -- so
+    that the evaluator's channel argmax is ``sigmoid(x) > t`` (ties go to
+    the constant channel, as ``argmax`` takes the first).  Dicts, lists and
+    tuples are mapped; other outputs pass through."""
+    if isinstance(value, dict):
+        return {k: binarize_channels(v, threshold, is_probs)
+                for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(binarize_channels(v, threshold, is_probs)
+                           for v in value)
+    if not isinstance(value, torch.Tensor) or value.dim() < 2 \
+            or value.shape[1] != 1:
+        return value
+    const = threshold if is_probs else math.log(
+        threshold / max(1.0 - threshold, 1e-8))
+    return torch.cat([torch.full_like(value, const), value], dim=1)
+
+
+def make_eval_step(model: nn.Module,
+                   rescale_size: Optional[Tuple[int, int]] = None):
+    """``eval_step(img (N, C, H, W), gt (N, H, W)) -> (seg_logits,
+    log_vars)``: the model in eval mode, ``forward_train`` without grad
+    (the logits at the labels' size, or at ``rescale_size``), the losses
+    through ``parse_losses``, and each head's logits through
+    ``binarize_channels``.  Under the bf16 policy the forward runs in
+    bfloat16 autocast, as ``forward_train`` does.  Everything stays on the
+    device: no host synchronisation."""
+    threshold = head_threshold(model)
+    meta = {"ori_img_size_hw": rescale_size} if rescale_size else {}
+
+    def eval_step(img, gt):
+        model.eval()
+        with torch.no_grad():
+            seg_logits, losses = model.forward_train(
+                img, gt, meta, rescale=rescale_size is not None)
+            _, log_vars = parse_losses(losses)
+        return ({k: binarize_channels(v, threshold)
+                 for k, v in seg_logits.items()}, log_vars)
+
+    return eval_step
+
+
+def make_tta_step(model: nn.Module, scales=(0.75, 1.0, 1.25)):
+    """``tta_step(img (N, C, H, W)) -> probs (N, out_channels, H, W)``: for
+    each scale a bilinear resize to ``(int(H·s), int(W·s))``, then that
+    image and its horizontal flip through ``inference`` (probabilities),
+    the flip undone, each resized back to ``(H, W)``; the mean of the
+    ``2·len(scales)`` results.  The model runs in eval mode without
+    grad."""
+
+    def tta_step(img):
+        model.eval()
+        h, w = img.shape[2:]
+        acc, n = 0.0, 0
+        with torch.no_grad():
+            for s in scales:
+                scaled = resize(img, size=(int(h * s), int(w * s)),
+                                mode="bilinear", align_corners=False)
+                for flip in (False, True):
+                    probs = model.inference(scaled.flip(3) if flip
+                                            else scaled)
+                    if flip:
+                        probs = probs.flip(3)
+                    acc = acc + resize(probs, size=(h, w), mode="bilinear",
+                                       align_corners=False)
+                    n += 1
+        return acc / n
+
+    return tta_step

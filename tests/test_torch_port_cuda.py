@@ -440,6 +440,11 @@ RESIZE_CASES = {
     "up_align_corners": ((2, 3, 13, 10), (25, 19), True),
     "down_align_corners": ((1, 2, 17, 9), (8, 4), True),
     "one_pixel": ((2, 5, 1, 1), (65, 65), False),
+    # DeepLabV3's train step at 16 x 512²: the decode and aux heads' 8x
+    # logits and the ASPP image pool (wide tables, taken one tap at a time)
+    "deeplab_decode": ((16, 2, 64, 64), (512, 512), False),
+    "deeplab_aux": ((16, 2, 64, 64), (512, 512), False),
+    "deeplab_pool": ((16, 512, 1, 1), (64, 64), False),
 }
 
 
@@ -450,12 +455,15 @@ def test_resize_backward_kernel_matches_plain(cuda, name, dtype,
     """One launch gives the plain version's bits (the same float32 steps in
     the same order), the same bits again on a second call, and in bf16 the
     kernel's own float32 result rounded once."""
-    monkeypatch.setattr(resize_backward, "launches", {"resize_backward": 0})
+    counts = dict.fromkeys(resize_backward.launches, 0)
+    monkeypatch.setattr(resize_backward, "launches", dict(counts))
     (n, c, h, w), size, ac = RESIZE_CASES[name]
     g = torch.Generator(device="cpu").manual_seed(case_seed(name))
     gy = torch.randn(n, c, *size, generator=g).to(cuda, dtype)
     got = resize_backward.resize_backward(gy, (h, w), ac)
-    assert resize_backward.launches == {"resize_backward": 1}
+    key = ("resize_backward_bf16" if dtype == torch.bfloat16
+           else "resize_backward")
+    assert resize_backward.launches == dict(counts, **{key: 1})
     assert got.dtype == dtype and got.shape == (n, c, h, w)
     assert torch.equal(got, resize_backward.resize_backward_plain(
         gy, (h, w), ac))

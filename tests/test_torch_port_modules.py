@@ -160,10 +160,15 @@ RESIZES = {
     "up_align_corners": ((2, 3, 13, 10), (25, 19), True),
     "down_align_corners": ((1, 2, 17, 9), (8, 4), True),
     "one_pixel": ((2, 3, 1, 1), (9, 7), False),
+    # wide tables (more than 8 taps an axis), as DeepLabV3's image pool (a
+    # 1 x 1 input) and its 8x logits take them
+    "pool_1_to_16": ((2, 3, 1, 1), (16, 16), False),
+    "up_8x": ((1, 2, 4, 5), (32, 40), False),
 }
 # against jax.vjp of the JAX resize: one case of each kind (up, down,
-# align_corners, a 1-pixel input), each a jit compile
-JAX_RESIZES = ("up_2x", "down", "up_align_corners", "one_pixel")
+# align_corners, a 1-pixel input, wide tables), each a jit compile
+JAX_RESIZES = ("up_2x", "down", "up_align_corners", "one_pixel",
+               "pool_1_to_16", "up_8x")
 # resize_backward_plain against F.interpolate's own CPU backward: the same
 # float32 weights and products, summed in another order
 RESIZE_ULPS = 8

@@ -45,6 +45,22 @@ def tiny_flagship_cfg(test_cfg=None, num_classes=2):
         test_cfg=test_cfg or dict(mode="whole"))
 
 
+def tiny_flagship_train_cfg(one_channel=False):
+    """``tiny_flagship_cfg`` with the flagship's own losses (sigmoid
+    cross-entropy in both heads, the aux head at weight 1.0) and no head
+    dropout, so that the packages draw nothing; ``one_channel``: both heads
+    one-channel at threshold 0.4."""
+    network = tiny_flagship_cfg()
+    for head in ("decode_head", "auxiliary_head"):
+        network[head].update(
+            dropout_ratio=0.0,
+            loss_decode=dict(type="CrossEntropyLoss", use_sigmoid=True,
+                             loss_weight=1.0))
+        if one_channel:
+            network[head].update(out_channels=1, threshold=0.4)
+    return network
+
+
 # configs/network/setr/setr_pup_vit-s.py cut to 2 layers of width 32, 2
 # heads, patch 8; on 40² images the position table (stored at a 3x3 grid)
 # is resized to the 5x5 patch grid
