@@ -255,9 +255,9 @@ AGREE_BATCH, AGREE_IMAGE_SIZE = 2, 320
 # rounding step of the largest parameter, which the card stores.
 GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-6
 # the flagship's float32 step is farther from float64 than that by nature:
-# its step on the CPU in float32 (no kernel) sits 3.7-8.4 % of max |g| from
-# float64 in the worst tensor (PERF.md, Findings), as far as the card's.
-# So the card is held to this factor of the CPU float32 step's worst share
+# its step on the CPU in float32 (no kernel) sits several % of max |g|
+# from float64 in the worst tensor (PERF.md, Findings), as far as the
+# card's; so the card is held to this factor of that step's worst share
 F32_SCALE_FACTOR = 2.0
 # the amp serving logits against the same bf16 forward with plain
 # attention on the card: the two differ by the rounding of each layer's
@@ -1506,7 +1506,7 @@ def deeplab_train_phase(device, amp=False):
     with policy_scope(policy):
         state, mean_log = train_one_epoch(
             0, timed_step, state, [(x, gt, {})] * TRAIN_STEPS,
-            generator=generator, log=False)
+            generator=generator)
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     launches = step_counts(amp)
@@ -1579,7 +1579,7 @@ def deeplab_validate(state, x, gt, policy):
     reset_counts()
     with policy_scope(policy):
         val_log, metrics = validate_one_epoch(0, recorded, state, loader,
-                                              evaluator, log=False)
+                                              evaluator)
     torch.cuda.synchronize()
     launches = dict(confusion.launches, instances=dict(confusion.instances))
     if launches["logits"] != 2 * len(loader) or launches["labels"] != 0:
@@ -1600,7 +1600,7 @@ def deeplab_validate(state, x, gt, policy):
                                  f"argmax + bincount {counts}")
     with policy_scope(policy), contextlib.redirect_stdout(io.StringIO()):
         batch_ms = timed_batches(lambda: validate_one_epoch(
-            0, eval_step, state, loader, new_evaluator(), log=False),
+            0, eval_step, state, loader, new_evaluator()),
             runs=3) / len(loader)
     print(f"deeplabv3 validate ({policy}): " + json.dumps(dict(
         batches=len(loader), batch=list(loader[0][0].shape),
@@ -1631,7 +1631,7 @@ def deeplab_tta(state, x, gt):
     evaluator = new_evaluator()
     reset_counts()
     _, metrics = validate_one_epoch(0, tta_eval_step, state, loader,
-                                    evaluator, log=False)
+                                    evaluator)
     torch.cuda.synchronize()
     launches = dict(confusion.launches, instances=dict(confusion.instances))
     if launches["logits"] != len(loader) or launches["labels"] != 0:
@@ -1646,7 +1646,7 @@ def deeplab_tta(state, x, gt):
                              f"off 1 by {sum_err}")
     with contextlib.redirect_stdout(io.StringIO()):
         batch_ms = timed_batches(lambda: validate_one_epoch(
-            0, tta_eval_step, state, loader, new_evaluator(), log=False),
+            0, tta_eval_step, state, loader, new_evaluator()),
             runs=3)
     print("deeplabv3 tta: " + json.dumps(dict(
         scales=TTA_SCALES, batch=list(loader[0][0].shape),

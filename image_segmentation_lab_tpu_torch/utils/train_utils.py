@@ -2,8 +2,8 @@
 ``utils/train_utils.py``): ``train_one_epoch``, ``validate_one_epoch`` and
 ``pth_metadata``.
 
-A data loader is any sized iterable of ``(images (N, C, H, W), labels (N,
-H, W), infos)`` batches, as float and integer arrays or tensors; a batch
+A data loader is any iterable of ``(images (N, C, H, W), labels (N, H,
+W), infos)`` batches, as float and integer arrays or tensors; a batch
 already on the model's device is used where it is.  The log values are
 summed on the device and read back once an epoch, so the host never waits
 on a step.  On-device augmentation (``pipeline``, ``fused_aug``) comes
@@ -17,12 +17,6 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-
-try:
-    from tqdm import tqdm
-except ImportError:  # pragma: no cover
-    def tqdm(x, **kwargs):
-        return x
 
 
 def _no_pipeline(pipeline, fused_aug=False):
@@ -49,7 +43,6 @@ def train_one_epoch(epoch: int,
                     dataloader,
                     pipeline=None,
                     generator: Optional[torch.Generator] = None,
-                    log: bool = True,
                     fused_aug: bool = False) -> tuple:
     """One epoch of ``train_step(img, gt, generator)`` over ``dataloader``,
     advancing ``state.step`` per batch; returns ``(state, mean log
@@ -63,10 +56,7 @@ def train_one_epoch(epoch: int,
         generator = torch.Generator(device=device).manual_seed(epoch)
     running: Dict[str, Any] = {}
     count = 0
-    bar = tqdm(dataloader, total=len(dataloader),
-               desc=f"train epoch {epoch}", leave=False) if log \
-        else dataloader
-    for images, labels, _ in bar:
+    for images, labels, _ in dataloader:
         images, labels = _to_device(images, labels, device)
         log_vars = train_step(images, labels, generator)
         state.step += 1
@@ -81,8 +71,7 @@ def validate_one_epoch(epoch: int,
                        state,
                        dataloader,
                        evaluator,
-                       pipeline=None,
-                       log: bool = True) -> tuple:
+                       pipeline=None) -> tuple:
     """``eval_step(img, gt)`` per batch, each head's logits into
     ``evaluator.process`` with the batch's labels (on the model's device,
     where the step took them), then ``evaluator.compute_metrics()``;
@@ -91,9 +80,7 @@ def validate_one_epoch(epoch: int,
     device = next(state.model.parameters()).device
     running: Dict[str, Any] = {}
     count = 0
-    bar = tqdm(dataloader, total=len(dataloader),
-               desc=f"val epoch {epoch}", leave=False) if log else dataloader
-    for batch_idx, (images, labels, infos) in enumerate(bar):
+    for batch_idx, (images, labels, infos) in enumerate(dataloader):
         images, labels = _to_device(images, labels, device)
         seg_logits, log_vars = eval_step(images, labels)
         count += 1

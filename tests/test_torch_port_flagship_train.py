@@ -20,7 +20,7 @@ hold ignored pixels.
   ``validate_one_epoch`` over two batches: the evaluator's metrics.
 - ``make_tta_step`` at 32² (scaled sides 24, 32, 40) and the segmentor's
   ``forward_test`` / ``batch_test`` / ``aug_test_logits``: probabilities at
-  rtol 1e-4 / atol 1e-5.
+  rtol 1e-4 / atol 1e-5; ``pth_metadata``: the same dict.
 """
 
 import numpy as np
@@ -29,8 +29,9 @@ import torch
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
-from torch_port_helpers import (bridge, init_jax,  # noqa: E402,E501
-                                tiny_flagship_train_cfg, to_nchw, to_nhwc)
+from torch_port_helpers import (bridge, compile_quickly,  # noqa: E402,E501
+                                init_jax, tiny_flagship_train_cfg, to_nchw,
+                                to_nhwc)
 
 from image_segmentation_lab_tpu import train_state as jtrain  # noqa: E402
 from image_segmentation_lab_tpu.core import LR_SCHEDULER as JLR  # noqa: E402
@@ -115,14 +116,16 @@ def jax_state(variables, tx=None):
 @pytest.fixture(scope="module")
 def flagship():
     """The network, the JAX module and variables, the kvasir SGD with
-    StepLR at step_size 1, and the jitted JAX step."""
+    StepLR at step_size 1, and the compiled JAX step."""
     network = tiny_flagship_train_cfg()
     jm, variables = jax_pair(network)
     lr_config = dict(SCHEDULE["lr_config"], step_size=1)
     schedule = jbuild_from_cfg(lr_config, JLR).schedule(
         SCHEDULE["optimizer"]["lr"], 1)
     tx = jbuild_optimizer({**SCHEDULE["optimizer"], "lr": schedule})
-    jstep = jtrain.make_train_step(jm, tx, donate=False)
+    jstep = compile_quickly(jtrain.make_train_step(jm, tx, donate=False),
+                            jax_state(variables, tx), *batch(seed=0),
+                            jax.random.PRNGKey(0))
     return dict(network=network, jm=jm, variables=variables, tx=tx,
                 jstep=jstep, lr_config=lr_config)
 
@@ -173,7 +176,7 @@ def test_train_one_epoch_matches_jax(flagship):
         0, train_state.make_train_step(state.model, state.optimizer,
                                        state.scheduler),
         state, Loader((to_nchw(i), g, {}) for i, g in batches),
-        generator=torch.Generator().manual_seed(0), log=False)
+        generator=torch.Generator().manual_seed(0))
     assert state.step == 2 and bn_counts(state.model) == {2}
     assert_loss_dicts_equal(port_vars, jvars)
     assert_state_equal(state.model, jstate, "after the epoch")
@@ -194,13 +197,16 @@ _jax_models, _jax_eval = {}, {}
 
 
 def eval_pair(head, rescale):
-    """(network, JAX variables, jitted JAX eval step), each built once."""
+    """(network, JAX variables, compiled JAX eval step), each built
+    once."""
     if head not in _jax_models:
         network = tiny_flagship_train_cfg(one_channel=EVAL_CASES[head])
         _jax_models[head] = (network, *jax_pair(network))
     network, jm, variables = _jax_models[head]
     if (head, rescale) not in _jax_eval:
-        _jax_eval[head, rescale] = jtrain.make_eval_step(jm, RESCALE[rescale])
+        _jax_eval[head, rescale] = compile_quickly(
+            jtrain.make_eval_step(jm, RESCALE[rescale]), jax_state(variables),
+            *batch(seed=0))
     return network, variables, _jax_eval[head, rescale]
 
 
@@ -242,7 +248,7 @@ def test_validate_one_epoch_matches_jax():
     state = train_state.TrainState(model, optimizer=None)
     port_vars, metrics = train_utils.validate_one_epoch(
         0, train_state.make_eval_step(model), state,
-        Loader((to_nchw(i), g, {}) for i, g in batches), evaluator, log=False)
+        Loader((to_nchw(i), g, {}) for i, g in batches), evaluator)
     assert_loss_dicts_equal(port_vars, ref_vars)
     assert sorted(metrics) == sorted(ref_metrics) == ["aux", "decode"]
     for head, values in ref_metrics.items():
@@ -262,7 +268,8 @@ def served(flagship):
 def test_tta_step_matches_jax(served):
     jm, variables, model = served
     img, _ = batch(seed=27)
-    ref = jtrain.make_tta_step(jm)(variables, img)
+    ref = compile_quickly(jtrain.make_tta_step(jm), variables, img)(
+        variables, img)
     out = train_state.make_tta_step(model)(to_nchw(img))
     assert out.shape == (2, 2, SIZE, SIZE)
     np.testing.assert_allclose(to_nhwc(out), np.asarray(ref), **PROB_TOL)
@@ -277,9 +284,9 @@ def views(served):
     jm, variables, _ = served
     imgs = [batch(seed=28)[0], batch(seed=29, size=24)[0]]
     sizes = [(SIZE, SIZE)] * 2
-    ref = jax.jit(lambda v, i: jm.apply(v, i, {"ori_img_size_hw": sizes},
-                                        method="forward_test"))(
-        variables, imgs)
+    ref = compile_quickly(jax.jit(lambda v, i: jm.apply(
+        v, i, {"ori_img_size_hw": sizes}, method="forward_test")),
+        variables, imgs)(variables, imgs)
     return [to_nchw(i) for i in imgs], sizes, [np.asarray(r) for r in ref]
 
 
@@ -305,3 +312,14 @@ def test_test_routes_match_jax(served, views, route):
     for out, ref in zip(outs, refs):
         assert out.shape == (2, 2, SIZE, SIZE)
         np.testing.assert_allclose(to_nhwc(out), ref, **PROB_TOL)
+
+
+def test_pth_metadata_matches_jax():
+    metrics = {"decode": {"aAcc": np.float64(91.5), "mIoU": 80.25,
+                          "IoU": np.array([95.5, 65.0])}}
+    args = ({"CLASSES": ("background", "object")}, 3, np.float32(0.75),
+            {"loss": 0.5}, {"loss": np.float32(0.625)}, metrics)
+    ref = jtrain_utils.pth_metadata(*args)
+    out = train_utils.pth_metadata(*args)
+    assert out == ref
+    assert out["metric.decode.IoU"] == [95.5, 65.0]

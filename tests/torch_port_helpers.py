@@ -140,6 +140,16 @@ def assert_argmax_parity(jax_logits, port_logits, rtol=1e-3, atol=3e-3):
             f"{mism.sum()} argmax mismatches, max top-2 gap {gaps.max()}")
 
 
+def compile_quickly(jitted, *args):
+    """``jitted`` (a ``jax.jit`` function) compiled for ``args`` with XLA's
+    backend (LLVM) optimisation off: the same operations, in well under
+    the compile time, which sets these small tests' time.  Its float32
+    results may differ from the optimised program's in the last bit (other
+    vectorised sum orders), far inside every tolerance here."""
+    return jitted.lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+
+
 def jax_apply(module, variables, *args, method=None, **kwargs):
     """``module.apply`` under ``jax.jit``: one compile instead of one per
     eager op."""
