@@ -82,8 +82,10 @@ printing its own lines; any failure raises and the exit code is not 0:
 10. cpu agreement (SETR train step): the full-size config without drop
    path, batch 2 at 320², one train step from the same weights on the card
    (kernels, float32) and on the CPU in float64 (plain versions, attention
-   and LayerNorm without their float32 casts): loss, every gradient and
-   every parameter after the update;
+   and LayerNorm without their float32 casts), there with every ReLU and
+   max-pool taking the branch it took on the card: loss, every gradient
+   and every parameter after the update; beside it the distance from the
+   float64 step on its own branches and the number of flipped branches;
 11. SETR train slice under amp: first one step's gradients from the
    same weights with the kernels and with plain attention on the card, each
    gradient tensor within 0.25 relative norm (the CPU amp test's bound);
@@ -108,7 +110,7 @@ printing its own lines; any failure raises and the exit code is not 0:
    ``val.py --tta`` composes them: 1 launch, probabilities that sum to 1
    per pixel within 1e-5; ms per batch of each;
 13. cpu agreement (DeepLabV3 train step): the full-width config without
-   head dropout, batch 2 at 256², one step from the same weights on the
+   head dropout, batch 4 at 256², one step from the same weights on the
    card (the resize kernel, float32) and on the CPU in float64 (its plain
    version), held as phase 10;
 14. DeepLabV3 train slice under amp: first one step's gradients from the
@@ -243,8 +245,12 @@ DEEPLAB_RESIZES = [((16, 2, 64, 64), (512, 512)),
 SCHEDULE = ROOT / "configs/schedule/kvasir_training_schedule.py"
 TTA_SCALES = (0.75, 1.0, 1.25)  # val.py's --tta-scales default
 # the flagship's float64 agreement step: at 256² the stride-8 map is 32²,
-# so the ASPP's dilation-12 and -24 taps land inside it
-DEEPLAB_AGREE_BATCH, DEEPLAB_AGREE_SIZE = 2, 256
+# so the ASPP's dilation-12 and -24 taps land inside it.  Four images, not
+# two: over few values a channel (the ASPP's image pool normalises one an
+# image) train-mode BN's input gradient is the difference of terms up to
+# |x - mean|² / eps times larger than itself, and at two images float32's
+# own rounding, on the same branches, comes to about GRAD_RTOL
+DEEPLAB_AGREE_BATCH, DEEPLAB_AGREE_SIZE = 4, 256
 TRAIN_BATCH, TRAIN_IMAGE_SIZE, TRAIN_STEPS = 8, 640, 10
 AGREE_BATCH, AGREE_IMAGE_SIZE = 2, 320
 # per gradient tensor, against the step in float64 on the CPU: max |card -
@@ -254,11 +260,6 @@ AGREE_BATCH, AGREE_IMAGE_SIZE = 2, 320
 # after the update get GRAD_RTOL of the largest update plus one float32
 # rounding step of the largest parameter, which the card stores.
 GRAD_RTOL, GRAD_ATOL = 2e-3, 1e-6
-# the flagship's float32 step is farther from float64 than that by nature:
-# its step on the CPU in float32 (no kernel) sits several % of max |g|
-# from float64 in the worst tensor (PERF.md, Findings), as far as the
-# card's; so the card is held to this factor of that step's worst share
-F32_SCALE_FACTOR = 2.0
 # the amp serving logits against the same bf16 forward with plain
 # attention on the card: the two differ by the rounding of each layer's
 # attention output to bf16 (kernel and plain version sum in other orders),
@@ -807,7 +808,7 @@ def kernel_class(name):
                        ("flash dq bf16", ("flash_bwd_dq_sm90_kernel",)),
                        ("flash dkv bf16", ("flash_bwd_dkv_sm90_kernel",)),
                        ("confusion", ("confusion_kernel",)),
-                       ("resize backward", ("resize_backward",)),
+                       ("resize backward", ("resize_backward_kernel",)),
                        ("batch norm", ("batch_norm", "bn_")),
                        # cuDNN's implicit-GEMM and FFT convolutions (the
                        # latter multiply in complex float, cf32 GEMMs),
@@ -1095,8 +1096,7 @@ def flash_backward_phase(device, l2_flush):
     return rows
 
 
-def resize_backward_phase(device, l2_flush,
-                          resizes=(*SETR_RESIZES, *DEEPLAB_RESIZES)):
+def resize_backward_phase(device, l2_flush):
     """The resize backward kernel against its plain version (the same
     bits), its own float32 result rounded once (bf16) and its second call
     (the same bits), at each shape of SETR's and DeepLabV3's train steps in
@@ -1104,7 +1104,8 @@ def resize_backward_phase(device, l2_flush,
     ``F.interpolate``'s own backward."""
     gen = torch.Generator(device=device).manual_seed(3)
     rows = []
-    for (n, c, h, w), size in dict.fromkeys(resizes):
+    for (n, c, h, w), size in dict.fromkeys((*SETR_RESIZES,
+                                             *DEEPLAB_RESIZES)):
         for dtype in (torch.float32, torch.bfloat16):
             gy = torch.randn((n, c, *size), generator=gen,
                              device=device).to(dtype)
@@ -1152,7 +1153,8 @@ def resize_backward_phase(device, l2_flush,
                 max_abs_err=0.0, vs_library_max_abs_err=lib_err,
                 max_abs_grad=float(ref.abs().max()),
                 ms=cuda_ms(kernel, flush),
-                device_ms=device_ms(kernel, "resize_backward", flush),
+                device_ms=device_ms(kernel, "resize_backward_kernel",
+                                    flush),
                 plain_ms=cuda_ms(plain, flush),
                 library_ms=cuda_ms(library, flush),
                 library_device_ms=device_ms(library, None, flush),
@@ -1369,47 +1371,97 @@ def setr_train_agreement_phase(device):
                     {k: per_step_launches(k) for k in step_counts()})
 
 
-def train_agreement(device, what, model, x, gt, patches, expected,
-                    float32_scale=False):
+@contextlib.contextmanager
+def recorded_branches(branches):
+    """``F.relu`` and ``F.max_pool2d`` as they are, each call appending its
+    branch to ``branches``: the mask of the inputs above 0 (those whose
+    gradient the ReLU passes), or the max-pool's argmax."""
+    relu, max_pool2d = F.relu, F.max_pool2d
+
+    def relu_recorded(x, inplace=False):
+        branches.append(x.detach() > 0)
+        return relu(x, inplace=inplace)
+
+    def max_pool2d_recorded(x, *args, **kwargs):
+        out, index = max_pool2d(x, *args, return_indices=True, **kwargs)
+        branches.append(index)
+        return out
+
+    with mock.patch.object(F, "relu", relu_recorded), \
+            mock.patch.object(F, "max_pool2d", max_pool2d_recorded):
+        yield
+
+
+@contextlib.contextmanager
+def replayed_branches(branches):
+    """Every ReLU and max-pool takes the branch that ``recorded_branches``
+    recorded for its call, in call order: the same piecewise-linear
+    function the recorded step differentiated."""
+    taken = iter(branches)
+
+    def relu_replayed(x, inplace=False):
+        return torch.where(next(taken).to(x.device), x, x.new_zeros(()))
+
+    def max_pool2d_replayed(x, *args, **kwargs):
+        index = next(taken).to(x.device)
+        return x.flatten(2).gather(2, index.flatten(2)).view_as(index)
+
+    with mock.patch.object(F, "relu", relu_replayed), \
+            mock.patch.object(F, "max_pool2d", max_pool2d_replayed):
+        yield
+    if next(taken, None) is not None:
+        raise AssertionError("the replayed step took fewer branches than "
+                             "the recorded one")
+
+
+def train_agreement(device, what, model, x, gt, patches, expected):
     """One train step of ``model`` (on the CPU) from the same weights on
     the card, in float32, which must launch the ``expected`` kernels
-    (``step_counts()``), and on the CPU in float64 under ``patches``: the
-    loss within 1e-4, every gradient within GRAD_RTOL of its largest value
-    and every parameter after the update within GRAD_RTOL of the largest
-    update plus one float32 rounding step.  With ``float32_scale`` the
-    same step also runs on the CPU in float32 (the plain versions), and
-    the card may be F32_SCALE_FACTOR times as far from float64 as the
-    worst tensor of that step, where that is more than GRAD_RTOL."""
+    (``step_counts()``), and twice on the CPU in float64 under
+    ``patches``: on the card's branches (``replayed_branches``) and on its
+    own.  Against the first: the loss within 1e-4, every gradient within
+    GRAD_RTOL of its largest value and every parameter after the update
+    within GRAD_RTOL of the largest update plus one float32 rounding step.
+    A ReLU input within float32's rounding of 0, or a max-pool window
+    with two values that close, takes the other branch in float64, and the
+    gradient jumps there; the second step's distance and the number of
+    such flipped branches are reported."""
     gpu_model = copy.deepcopy(model).to(device)
-    cpu32_model = copy.deepcopy(model) if float32_scale else None
+    own_model = copy.deepcopy(model).double()
     before = {k: t.double() for k, t in snapshot(model).items()}
     ref_model = model.double()
-    t0 = time.perf_counter()
-    with contextlib.ExitStack() as stack:
-        for patch in patches:
-            stack.enter_context(patch)
-        ref_loss = one_train_step(ref_model, x, gt, torch.device("cpu"))
-    cpu_s = time.perf_counter() - t0
     reset_counts()
-    gpu_loss = one_train_step(gpu_model, x, gt, device)
+    card_branches, own_branches = [], []
+    with recorded_branches(card_branches):
+        gpu_loss = one_train_step(gpu_model, x, gt, device)
     torch.cuda.synchronize()
     launches = step_counts()
     if launches != expected:
         raise AssertionError(f"the card's step launched {launches}, not "
                              f"{expected}")
+    card_branches = [b.cpu() for b in card_branches]
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        with replayed_branches(card_branches):
+            ref_loss = one_train_step(ref_model, x, gt, torch.device("cpu"))
+        with recorded_branches(own_branches):
+            own_loss = one_train_step(own_model, x, gt, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
     if abs(gpu_loss - ref_loss) > 1e-4 * abs(ref_loss):
         raise AssertionError(f"loss {gpu_loss} on the card, {ref_loss} in "
                              f"float64 on the CPU")
     ulp = torch.finfo(torch.float32).eps
-    ref_params = dict(ref_model.named_parameters())
 
-    def shares(trained):
+    def shares(reference):
         """Per kind ("grad", "update") and tensor: the max abs error of
-        ``trained`` against float64, over the scale it is held to (max |g|,
-        the largest update), and that scale's floor (GRAD_ATOL, one
-        float32 rounding step of the largest parameter)."""
+        the card's step against ``reference``, the scale it is held to
+        (max |g|, the largest update), and that scale's floor (GRAD_ATOL,
+        one float32 rounding step of the largest parameter)."""
         out = {"grad": {}, "update": {}}
-        for name, q in trained.named_parameters():
+        ref_params = dict(reference.named_parameters())
+        for name, q in gpu_model.named_parameters():
             p = ref_params[name]
             for kind, ref, got, scale, floor in (
                     ("grad", p.grad, q.grad, float(p.grad.abs().max()),
@@ -1421,18 +1473,13 @@ def train_agreement(device, what, model, x, gt, patches, expected,
                 out[kind][name] = (err, scale, floor)
         return out
 
-    gpu = shares(gpu_model)
-    rtol = dict.fromkeys(gpu, GRAD_RTOL)
-    cpu32_worst = None
-    if float32_scale:
-        one_train_step(cpu32_model, x, gt, torch.device("cpu"))
-        cpu32 = shares(cpu32_model)
-        cpu32_worst = {kind: max((err / (scale + floor), name) for name,
-                                 (err, scale, floor) in cpu32[kind].items())
-                       for kind in cpu32}
-        rtol = {kind: max(GRAD_RTOL, F32_SCALE_FACTOR * worst[0])
-                for kind, worst in cpu32_worst.items()}
-    used = {kind: {name: err / (rtol[kind] * scale + floor)
+    def worst_grads(errors):
+        share = {name: err / (scale + floor)
+                 for name, (err, scale, floor) in errors["grad"].items()}
+        return share, sorted(share.items(), key=lambda kv: -kv[1])[:3]
+
+    gpu = shares(ref_model)
+    used = {kind: {name: err / (GRAD_RTOL * scale + floor)
                    for name, (err, scale, floor) in gpu[kind].items()}
             for kind in gpu}
     over = sorted(((share, kind, name) for kind in used
@@ -1441,17 +1488,19 @@ def train_agreement(device, what, model, x, gt, patches, expected,
     if over:
         raise AssertionError(f"{len(over)} tensors beyond the allowed error "
                              f"(error / allowed, kind, name): {over[:5]}")
-    grad_shares = {name: err / (scale + floor)
-                   for name, (err, scale, floor) in gpu["grad"].items()}
+    grad_shares, worst = worst_grads(gpu)
+    _, worst_own = worst_grads(shares(own_model))
     print(f"cpu agreement ({what}): " + json.dumps(dict(
-        batch=list(x.shape), loss_float64=ref_loss, loss_gpu=gpu_loss,
+        batch=list(x.shape), loss_float64=ref_loss,
+        loss_float64_own_branches=own_loss, loss_gpu=gpu_loss,
         launches=launches, cpu_float64_seconds=cpu_s,
+        branches=len(card_branches),
+        flipped_branches=sum(int((a != b).sum()) for a, b in
+                             zip(card_branches, own_branches, strict=True)),
         tensors=len(grad_shares),
         grads_over_1e_3_of_max=sum(v > 1e-3 for v in grad_shares.values()),
-        worst_grad_share_of_max=sorted(grad_shares.items(),
-                                       key=lambda kv: -kv[1])[:3],
-        **({} if cpu32_worst is None else
-           {"cpu_float32_worst_share": cpu32_worst, "rtol": rtol}),
+        worst_grad_share_of_max=worst,
+        own_branches_worst_grad_share_of_max=worst_own,
         tolerance_used={k: max(v.values()) for k, v in used.items()})),
         flush=True)
 
@@ -1732,8 +1781,7 @@ def deeplab_train_agreement_phase(device):
     expected = {k: 0 for k in step_counts()}
     expected[RESIZE_KEY[False]] = len(DEEPLAB_RESIZES)
     train_agreement(device, "deeplabv3 train step", model, x,
-                    torch.from_numpy(masks).long(), (), expected,
-                    float32_scale=True)
+                    torch.from_numpy(masks).long(), (), expected)
 
 
 def main():

@@ -17,16 +17,17 @@ before one rounding and XLA's CPU may round in between.
 Tolerances, on the tiny SETR-PUP (configs/network/setr/setr_pup_vit-s.py
 cut to 2 layers of width 128, heads of d = 32 and 64, patch 8, 40²
 images) and on the flagship's structure (``tiny_flagship_train_cfg``:
-DeepLabV3 at depth 18 with its sigmoid losses, 32² images): logits within
+DeepLabV3 at depth 18 with its sigmoid losses, 64² images): logits within
 2**-4 of the largest |logit| (about eight bf16 rounding steps of it) and
 the same hard prediction at 98 % of the pixels; after one SGD step, the
-loss at rtol 1e-2, and each of SETR's gradient tensors at a relative
-(Frobenius) distance from JAX's of at most 0.25 and at most twice the
-distance of the port's float32 gradient from it.  bf16 rounding moves
-these small-width gradients by 8-10 % of their norm on either side, so
+loss at rtol 1e-2, and each gradient tensor at a relative (Frobenius)
+distance from JAX's of at most twice the distance of the port's float32
+gradient from it, and for SETR's at most 0.25.  bf16 rounding moves
+SETR's small-width gradients by 8-10 % of their norm on either side, so
 the two bf16 steps sit 11-15 % apart and a lost or doubled term shows as
-100 %.  DeepLabV3's step is held on its BatchNorm statistics and its
-classifiers' gradients (see its test).  The same weights give
+100 %.  DeepLabV3's backbone gradients are mostly bf16 noise (see its
+test); its step is also held on its BatchNorm statistics and its
+classifiers' gradients within 0.25.  The same weights give
 float32-policy logits that differ from the bf16 ones by more than a bf16
 rounding, so the test sees which policy ran.
 """
@@ -139,7 +140,7 @@ def wide_setr(num_heads):
 
 # the network and its images' side for each case
 CASES = {"d32": (lambda: wide_setr(4), 40), "d64": (lambda: wide_setr(2), 40),
-         "deeplabv3": (tiny_flagship_train_cfg, 32)}
+         "deeplabv3": (tiny_flagship_train_cfg, 64)}
 
 
 def bf16_case(name):
@@ -225,15 +226,19 @@ def test_setr_bf16_train_step_matches_jax():
 
 def test_deeplabv3_bf16_train_step_matches_jax():
     """The same step for the flagship's structure: the loss, every
-    BatchNorm running statistic after the step (within four bf16 rounding
-    steps of its largest value), and the classifiers' gradients (decode
-    and aux ``conv_seg``) within GRAD_SHARE.  The other gradients pass
-    through the input gradient of a BatchNorm in train mode, whose mean
-    subtractions amplify bf16 rounding at this size: the port's bf16
-    gradients of the backbone differ from its own float32 ones by tens of
-    percent of their norm, and JAX's too, so no bf16 step meets a
-    per-tensor bound there."""
+    gradient within GRAD_RATIO of the port's float32 gradient's distance,
+    the classifiers' gradients (decode and aux ``conv_seg``) also within
+    GRAD_SHARE, and every BatchNorm running statistic after the step
+    within four bf16 rounding steps of its largest value.  The backbone's
+    gradients pass through the input gradients of train-mode BatchNorms,
+    whose mean subtractions amplify bf16 rounding: in either package its
+    bf16 gradients differ from the float32 ones by tens of percent of
+    their norm up to several times it, so only the classifiers are held
+    to GRAD_SHARE."""
     step = bf16_step("deeplabv3")
+    for name in step["ref_grads"]:
+        err, err32 = step["distance"](name)
+        assert err <= GRAD_RATIO * err32, (name, err, err32)
     for name in ("decode_head.conv_seg.weight", "decode_head.conv_seg.bias",
                  "auxiliary_head.conv_seg.weight",
                  "auxiliary_head.conv_seg.bias"):
