@@ -65,8 +65,9 @@ printing its own lines; any failure raises and the exit code is not 0:
    kernels' delta = rowsum(dO·O), plain torch);
 8b. resize backward kernel (the gradient of the bilinear resize, a gather
    with no atomics): against its plain version (the same bits) at SETR's
-   six upsamples in its train step and DeepLabV3's (the 8x logits and the
-   1 x 1 ASPP image pool, wide tables), in float32 and bfloat16; the bf16
+   six upsamples in its train step and DeepLabV3's at 512² and 640² (the
+   8x logits and the 1 x 1 ASPP image pool, wide tables), in float32 and
+   bfloat16; the bf16
    result must be the kernel's float32 result rounded once and a second
    call the same bits; beside it ``F.interpolate``'s own backward
    (``aten::upsample_bilinear2d_backward``) as a yardstick;
@@ -119,7 +120,35 @@ printing its own lines; any failure raises and the exit code is not 0:
    within 1e-6 relative norm where an op has no deterministic
    implementation, which is named); then phase 12's steps and validation
    under the bf16 policy, with 3 bf16 resize backward launches per step
-   and no float32 one.
+   and no float32 one;
+15. the Kvasir augmentation pipeline alone: ``Pipeline.from_yaml`` of
+   ``configs/augmentation/kvasir_train_transform.yaml`` on the card at the
+   schedule's 16 × 640² uint8 from ``SyntheticDataset``: shapes, dtypes,
+   finite values, each OneOf child's and p < 1 leaf's sub-batch equal to
+   ``_apportion``; the pinned copy of the YAML
+   (``tests/data/kvasir_train_transform_pinned.yaml``) on the card against
+   the port on the CPU (2e-4 after Normalize; Rotate's nearest mask taps
+   off only at half-integer source coordinates, at most 0.1 %); GlassBlur
+   and ISONoise with draws made on the CPU, card against CPU (1e-2 on the
+   0-255 scale); device ms a batch, busy share and the device time by
+   transform (``record_function`` ranges), each transform alone on its
+   sub-batch, and each blur's grouped convolution against shifted adds;
+   the same for the val YAML at 8 × 640² (= Normalize on the CPU);
+16. the flagship's loop with the augmentation fused into the step:
+   DeepLabV3-R50-d8 (phase 12's model) for 10 steps of
+   ``train_one_epoch(..., fused_aug=True)`` over a 4-thread
+   ``DataLoader`` of ``SyntheticDataset`` 640² items through the Kvasir
+   train YAML at the schedule's batch of 16, in float32 and under amp:
+   uint8 batches to the card, exactly 3 resize-backward launches a step
+   in the policy's dtype, finite losses whose last three steps' mean is
+   below the first three's, moved parameters; step time (median of steps
+   2-10), the epoch's wall time and the loader's share of it, peak
+   memory, host-to-device MB a step, over a profiled epoch of three
+   batches the busy share and the augmentation's device ms a step by
+   transform, and one step's breakdown by kernel class; then ``validate_one_epoch(..., pipeline=
+   val_dataset.device_pipeline)`` over two batches of 8 × 640², held as
+   phase 12's validation (2 K1 launches a batch, counts = argmax +
+   bincount).
 
 Kernel times: the wrapper's median of 20 calls by CUDA events and the
 kernel's own device time from ``torch.profiler`` (for SDPA's forward, of
@@ -158,6 +187,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from image_segmentation_lab_tpu_torch.core.dataset import (DataLoader,
+                                                           SyntheticDataset)
 from image_segmentation_lab_tpu_torch.core.dataset.synthetic import \
     make_synthetic_item
 from image_segmentation_lab_tpu_torch.core.evaluation import SegEvaluator
@@ -166,6 +197,8 @@ from image_segmentation_lab_tpu_torch.core.inference import (inference_model,
                                                              init_model)
 from image_segmentation_lab_tpu_torch.core.mixed_precision import \
     policy_scope
+from image_segmentation_lab_tpu_torch.data import transforms as aug
+from image_segmentation_lab_tpu_torch.data.pipeline import Pipeline
 from image_segmentation_lab_tpu_torch.models.backbones import vit
 from image_segmentation_lab_tpu_torch.models.basic import LayerNorm
 from image_segmentation_lab_tpu_torch.ops import (confusion, flash_attention,
@@ -242,7 +275,22 @@ SETR_RESIZES = [((8, 256, 40, 40), (80, 80)),
 DEEPLAB_RESIZES = [((16, 2, 64, 64), (512, 512)),
                    ((16, 2, 64, 64), (512, 512)),
                    ((16, 512, 1, 1), (64, 64))]
+# the same at the kvasir schedule's 16 x 640² (phase 16): the logits from
+# 80², the image pool to 80²
+DEEPLAB_RESIZES_640 = [((16, 2, 80, 80), (640, 640)),
+                       ((16, 2, 80, 80), (640, 640)),
+                       ((16, 512, 1, 1), (80, 80))]
 SCHEDULE = ROOT / "configs/schedule/kvasir_training_schedule.py"
+TRAIN_TRANSFORM = ROOT / "configs/augmentation/kvasir_train_transform.yaml"
+# the train YAML with every draw pinned (tests/test_torch_port_data.py)
+PINNED_TRANSFORM = ROOT / "tests/data/kvasir_train_transform_pinned.yaml"
+AUG_SIZE = 640  # the Kvasir YAMLs' Resize
+LOADER_WORKERS = 4  # the reference's DataLoader(num_workers=4)
+# the pipeline's tolerances of tests/test_torch_port_data.py: images on the
+# 0-255 scale before Normalize, after it; Rotate's nearest mask taps may
+# differ only where the source coordinate is within 1e-3 of a half-integer
+# (the card's sin and cos may round it the other way), at most 0.1 %
+RAW_ATOL, NORM_ATOL, MASK_FLIP_SHARE = 1e-2, 2e-4, 1e-3
 TTA_SCALES = (0.75, 1.0, 1.25)  # val.py's --tta-scales default
 # the flagship's float64 agreement step: at 256² the stride-8 map is 32²,
 # so the ASPP's dilation-12 and -24 taps land inside it.  Four images, not
@@ -1105,7 +1153,8 @@ def resize_backward_phase(device, l2_flush):
     gen = torch.Generator(device=device).manual_seed(3)
     rows = []
     for (n, c, h, w), size in dict.fromkeys((*SETR_RESIZES,
-                                             *DEEPLAB_RESIZES)):
+                                             *DEEPLAB_RESIZES,
+                                             *DEEPLAB_RESIZES_640)):
         for dtype in (torch.float32, torch.bfloat16):
             gy = torch.randn((n, c, *size), generator=gen,
                              device=device).to(dtype)
@@ -1600,22 +1649,24 @@ def deeplab_train_phase(device, amp=False):
     with policy_scope(policy):
         print_breakdown(f"deeplabv3 train step ({policy})",
                         lambda: train_step(x, gt, generator))
+    n = flagship_schedule()["val_batch_size"]
     paths = {"train": launches,
-             "validate": deeplab_validate(state, x, gt, policy)}
+             "validate": deeplab_validate(
+                 state, [(x[i:i + n], gt[i:i + n], {}) for i in (0, n)],
+                 policy)}
     if not amp:
         paths["tta"] = deeplab_tta(state, x, gt)
     return paths
 
 
-def deeplab_validate(state, x, gt, policy):
-    """``validate_one_epoch`` through ``make_eval_step`` over two batches
-    of the schedule's ``val_batch_size`` (the train batch's images) under
-    ``policy``: exactly 2 K1 launches a batch (decode and aux heads) and no
-    K2, and the evaluator's counts equal to ``torch.argmax`` +
-    ``torch.bincount`` on the same logits.  Timed over a second pass.  The
-    confusion launches and instances."""
-    n = flagship_schedule()["val_batch_size"]
-    loader = [(x[i:i + n], gt[i:i + n], {}) for i in (0, n)]
+def deeplab_validate(state, loader, policy, pipeline=None,
+                     what="deeplabv3 validate"):
+    """``validate_one_epoch`` through ``make_eval_step`` over ``loader``
+    (two batches of the schedule's ``val_batch_size``; raw, through
+    ``pipeline``, where given) under ``policy``: exactly 2 K1 launches a
+    batch (decode and aux heads) and no K2, and the evaluator's counts
+    equal to ``torch.argmax`` + ``torch.bincount`` on the same logits.
+    Timed over a second pass.  The confusion launches and instances."""
     eval_step = make_eval_step(state.model)
     seen = []
 
@@ -1628,7 +1679,7 @@ def deeplab_validate(state, x, gt, policy):
     reset_counts()
     with policy_scope(policy):
         val_log, metrics = validate_one_epoch(0, recorded, state, loader,
-                                              evaluator)
+                                              evaluator, pipeline=pipeline)
     torch.cuda.synchronize()
     launches = dict(confusion.launches, instances=dict(confusion.instances))
     if launches["logits"] != 2 * len(loader) or launches["labels"] != 0:
@@ -1649,10 +1700,11 @@ def deeplab_validate(state, x, gt, policy):
                                  f"argmax + bincount {counts}")
     with policy_scope(policy), contextlib.redirect_stdout(io.StringIO()):
         batch_ms = timed_batches(lambda: validate_one_epoch(
-            0, eval_step, state, loader, new_evaluator()),
+            0, eval_step, state, loader, new_evaluator(), pipeline=pipeline),
             runs=3) / len(loader)
-    print(f"deeplabv3 validate ({policy}): " + json.dumps(dict(
-        batches=len(loader), batch=list(loader[0][0].shape),
+    print(f"{what} ({policy}): " + json.dumps(dict(
+        batches=len(loader), batch=list(seen[0][1].shape),
+        pipeline=pipeline is not None,
         ms_per_batch=batch_ms, val_log=val_log, launches=launches,
         counts_equal_argmax_bincount=True, metrics=summarize(metrics),
         logits_dtype=str(seen[0][0]["decode"].dtype))), flush=True)
@@ -1784,6 +1836,383 @@ def deeplab_train_agreement_phase(device):
                     torch.from_numpy(masks).long(), (), expected)
 
 
+def half_integer_pixels(shape, angle_deg):
+    """Where a rotation's source coordinate (float64) lies within 1e-3 of
+    a half-integer: there the nearest mask tap may go either way."""
+    h, w = shape
+    a = math.radians(angle_deg)
+    yy, xx = np.meshgrid(np.arange(h) - (h - 1) / 2,
+                         np.arange(w) - (w - 1) / 2, indexing="ij")
+    src_y = math.cos(a) * yy + math.sin(a) * xx + (h - 1) / 2
+    src_x = -math.sin(a) * yy + math.cos(a) * xx + (w - 1) / 2
+
+    def near_half(v):
+        return np.abs(v - np.floor(v) - 0.5) < 1e-3
+    return near_half(src_y) | near_half(src_x)
+
+
+def check_mask_flips(out, ref, angle, what):
+    """Masks equal, or off only at Rotate's half-integer taps, at most
+    MASK_FLIP_SHARE of the pixels; the share that is off."""
+    off = out.cpu().numpy() != ref.cpu().numpy()
+    excused = half_integer_pixels(off.shape[1:], angle)[None]
+    if (off & ~excused).any() or off.mean() > MASK_FLIP_SHARE:
+        raise AssertionError(f"{what}: {int(off.sum())} mask pixels off, "
+                             f"{int((off & ~excused).sum())} away from a "
+                             f"half-integer tap")
+    return float(off.mean())
+
+
+def loader_batch(transform, n, seed=0):
+    """The dataset and one collated batch of ``n`` synthetic AUG_SIZE²
+    items as the loader gives them: uint8 (N, H, W, 3) and float masks."""
+    ds = SyntheticDataset(pipeline=str(transform), length=n,
+                          image_size=(AUG_SIZE, AUG_SIZE), seed=seed)
+    images, masks, _ = ds.collate_fn([ds[i] for i in range(n)])
+    return ds, images, masks
+
+
+def branch_sizes(pipe, n, run):
+    """The sub-batch each OneOf child and each p < 1 leaf of the pipeline
+    got in ``run()`` on ``n`` images, and the sizes ``_apportion`` gives
+    them."""
+    seen, expected, spied = [], [], []
+    for t in pipe.root.transforms:
+        if isinstance(t, aug.OneOf):
+            children = t.transforms
+            weights = [float(w) * t.p for w in t.probs] + (
+                [1.0 - t.p] if t.p < 1 else [])
+        elif t.p < 1:
+            children, weights = [t], [t.p, 1.0 - t.p]
+        else:
+            continue
+        expected.append((children, weights))
+        for child in children:
+            def spy(g, imgs, masks, orig=child.force_apply,
+                    name=type(child).__name__):
+                seen.append((name, imgs.shape[0]))
+                return orig(g, imgs, masks)
+            child.force_apply = spy
+            spied.append(child)
+    try:
+        run()
+    finally:
+        for child in spied:
+            del child.force_apply
+    want = [(type(c).__name__, k) for children, weights in expected
+            for c, k in zip(children, aug._apportion(n, weights)) if k]
+    return seen, want
+
+
+def transform_split(fn, runs=3):
+    """Device ms a call of ``fn`` per transform (the pipeline's
+    ``record_function`` ranges, kernels launched inside each), the sum of
+    every kernel and the wall ms, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / runs
+    split, kernels = {}, 0.0
+    names = set(aug.TRANSFORMS) | {"augmentation"}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if evt.key not in names:
+                kernels += evt.self_device_time_total / 1e3 / runs
+        elif evt.key in names:
+            split[evt.key] = evt.device_time_total / 1e3 / runs
+    return dict(sorted(split.items(), key=lambda kv: -kv[1])), kernels, wall
+
+
+def shifted_add_blur(imgs, kernels):
+    """The other route for the blurs' per-image kernels: one multiply-add
+    over the whole sub-batch per tap (the JAX package's form), timed
+    against the grouped convolution of ``transforms._depthwise_blur``."""
+    n, c, h, w = imgs.shape
+    kh, kw = kernels.shape[-2:]
+    x = F.pad(imgs, (kw // 2, kw // 2, kh // 2, kh // 2), mode="reflect")
+    k = kernels if kernels.dim() == 3 else kernels.expand(n, kh, kw)
+    out = torch.zeros_like(imgs)
+    for dy in range(kh):
+        for dx in range(kw):
+            out += k[:, dy, dx, None, None, None] * x[:, :, dy:dy + h,
+                                                      dx:dx + w]
+    return out
+
+
+def blur_routes(pipe, x, gen):
+    """Each blur of the train YAML on its sub-batch as the stratified
+    pipeline gives it (16 images over four blurs: 4 each), through the
+    grouped convolution and through shifted adds: ms of each (CUDA events)
+    and their distance."""
+    blurs = next(t for t in pipe.root.transforms if isinstance(t, aug.OneOf)
+                 and any(isinstance(c, aug.Blur) for c in t.transforms))
+    counts = aug._apportion(x.shape[0], [float(w) for w in blurs.probs])
+    rows = {}
+    for t, count in zip(blurs.transforms, counts):
+        sub = x[:count]
+        params = t.sample(gen, count, tuple(sub.shape[1:]))
+        if isinstance(t, aug.GlassBlur):
+            g = t._gauss_kernel(x.device)
+            kernels = [g[:, None], g[None, :]]  # one pass each way
+        elif isinstance(t, aug.Blur):
+            kernels = [aug._masked_box_kernel(params["size"], t.kmax)]
+        else:
+            kernels = [t.kernel(params)]
+
+        def route(blur):
+            def run():
+                out = sub
+                for k in kernels:
+                    out = blur(out, k)
+                return out
+            return run
+        conv, shifted = route(aug._depthwise_blur), route(shifted_add_blur)
+        err = float((conv() - shifted()).abs().max())
+        if err > RAW_ATOL:
+            raise AssertionError(f"{type(t).__name__}: the two blur routes "
+                                 f"differ by {err}")
+        rows[type(t).__name__] = dict(
+            images=count, taps=[list(k.shape[-2:]) for k in kernels],
+            grouped_conv_ms=cuda_ms(conv, runs=10),
+            shifted_add_ms=cuda_ms(shifted, runs=10), max_abs_diff=err)
+    return rows
+
+
+def pipeline_phase(device):
+    """Phase 15: the Kvasir train pipeline alone on the card at the
+    schedule's train batch of AUG_SIZE² uint8 images from
+    ``SyntheticDataset``, then the val pipeline at its val batch."""
+    n = flagship_schedule()["train_batch_size"]
+    _, images, masks = loader_batch(TRAIN_TRANSFORM, n)
+    pipe = Pipeline.from_yaml(TRAIN_TRANSFORM)
+    x, m = torch.from_numpy(images).to(device), torch.from_numpy(
+        masks).to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    outputs = []
+    seen, want = branch_sizes(pipe, n,
+                              lambda: outputs.append(pipe(gen, x, m)))
+    out, om = outputs[0]
+    if (tuple(out.shape) != (n, 3, AUG_SIZE, AUG_SIZE)
+            or out.dtype != torch.float32 or om.dtype != torch.int32
+            or tuple(om.shape) != (n, AUG_SIZE, AUG_SIZE)
+            or not bool(torch.isfinite(out).all())
+            or not set(om.unique().tolist()) <= {0, 1}):
+        raise AssertionError(f"the train pipeline gave {tuple(out.shape)} "
+                             f"{out.dtype}, masks {tuple(om.shape)} "
+                             f"{om.dtype} {om.unique().tolist()}")
+    if seen != want:
+        raise AssertionError(f"sub-batch sizes {seen}, not the "
+                             f"apportionment {want}")
+
+    # the pinned copy: the card against the port on the CPU
+    pinned = Pipeline.from_yaml(PINNED_TRANSFORM)
+    angle = float(pinned.root.transforms[1].transforms[0].limit[0])
+    p_out, p_m = pinned(torch.Generator(device=device).manual_seed(0), x, m)
+    c_out, c_m = pinned(torch.Generator().manual_seed(0), images, masks)
+    pinned_err = float((p_out.cpu() - c_out).abs().max())
+    if pinned_err > NORM_ATOL:
+        raise AssertionError(f"pinned pipeline: card vs CPU {pinned_err}")
+    pinned_flips = check_mask_flips(p_m, c_m, angle, "pinned pipeline")
+
+    # GlassBlur and ISONoise with their draws made on the CPU
+    injected = {}
+    for t in (c for o in pipe.root.transforms
+              for c in getattr(o, "transforms", [o])
+              if isinstance(c, (aug.GlassBlur, aug.ISONoise))):
+        k = 4
+        params = t.sample(torch.Generator().manual_seed(1), k,
+                          (3, AUG_SIZE, AUG_SIZE))
+        sub = torch.from_numpy(images[:k]).permute(0, 3, 1, 2).float()
+        ref, _ = t.apply(sub, None, params)
+        got, _ = t.apply(sub.to(device), None,
+                         {a: v.to(device) for a, v in params.items()})
+        err = float((got.cpu() - ref).abs().max())
+        if err > RAW_ATOL:
+            raise AssertionError(f"{type(t).__name__} with injected draws: "
+                                 f"card vs CPU {err}")
+        injected[type(t).__name__] = err
+
+    split, kernels_ms, wall = transform_split(lambda: pipe(gen, x, m))
+    per_transform = {}
+    for name, count in want + [("Normalize", n)]:
+        t = next(c for o in pipe.root.transforms
+                 for c in getattr(o, "transforms", [o])
+                 if type(c).__name__ == name)
+        sub, sub_m = x[:count].permute(0, 3, 1, 2).float(), m[:count]
+        per_transform[name] = dict(images=count, ms=cuda_ms(
+            lambda: t.force_apply(gen, sub, sub_m), runs=10))
+    line = dict(
+        batch=list(images.shape), out=list(out.shape),
+        ms_per_batch=cuda_ms(lambda: pipe(gen, x, m), runs=10),
+        wall_ms=wall, device_ms=kernels_ms, busy_share=kernels_ms / wall,
+        device_ms_by_transform=split, sub_batches=seen,
+        transform_alone_ms=per_transform,
+        blur_routes=blur_routes(pipe, x.permute(0, 3, 1, 2).float(), gen),
+        pinned_vs_cpu_max_abs_err=pinned_err,
+        pinned_mask_share_off=pinned_flips,
+        injected_vs_cpu_max_abs_err=injected)
+    print("kvasir train pipeline: " + json.dumps(line), flush=True)
+    del x, m, out, om, p_out, p_m
+
+    # the val pipeline (Resize, Normalize) at the val batch
+    n_val = flagship_schedule()["val_batch_size"]
+    _, images, masks = loader_batch(VAL_TRANSFORM, n_val, seed=1)
+    val = Pipeline.from_yaml(VAL_TRANSFORM)
+    x, m = torch.from_numpy(images).to(device), torch.from_numpy(
+        masks).to(device)
+    out, om = val(gen, x, m)
+    ref = (torch.from_numpy(images).permute(0, 3, 1, 2).float()
+           - torch.tensor(val.root.transforms[1].mean)[:, None, None]
+           * 255.0) / (torch.tensor(val.root.transforms[1].std)[:, None, None]
+                       * 255.0)
+    val_err = float((out.cpu() - ref).abs().max())
+    if val_err > NORM_ATOL or not torch.equal(om.cpu(),
+                                              torch.from_numpy(masks).int()):
+        raise AssertionError(f"val pipeline: {val_err} from Normalize")
+    split, kernels_ms, wall = transform_split(lambda: val(gen, x, m))
+    print("kvasir val pipeline: " + json.dumps(dict(
+        batch=list(images.shape), out=list(out.shape),
+        ms_per_batch=cuda_ms(lambda: val(gen, x, m), runs=10),
+        wall_ms=wall, device_ms=kernels_ms, busy_share=kernels_ms / wall,
+        device_ms_by_transform=split, vs_normalize_max_abs_err=val_err)),
+        flush=True)
+
+
+def deeplab_fused_phase(device, amp=False):
+    """Phase 16: the flagship's loop with the augmentation fused into the
+    step: TRAIN_STEPS steps of ``train_one_epoch(..., fused_aug=True)``
+    over a ``DataLoader`` (LOADER_WORKERS threads) of ``SyntheticDataset``
+    AUG_SIZE² items through the Kvasir train YAML at the schedule's train
+    batch, float32 or under the bf16 policy with ``amp``; then
+    ``validate_one_epoch`` through the val YAML's ``device_pipeline`` over
+    two val batches.  Exactly 3 resize-backward launches a step in the
+    policy's dtype, finite and falling losses, moved parameters.  The
+    launches of each path."""
+    policy = "bf16" if amp else "fp32"
+    schedule = flagship_schedule()
+    n = schedule["train_batch_size"]
+    model = init_model(CONFIG, device=device)
+    randomize_(model, seed=0)
+    optimizer_cfg, lr_config, _ = schedule_cfg()
+    state = create_train_state(model, optimizer_cfg, lr_config)
+    train_ds = SyntheticDataset(pipeline=str(TRAIN_TRANSFORM),
+                                length=n * TRAIN_STEPS,
+                                image_size=(AUG_SIZE, AUG_SIZE))
+    loader = DataLoader(train_ds, batch_size=n, shuffle=True,
+                        num_workers=LOADER_WORKERS, drop_last=True,
+                        collate_fn=train_ds.collate_fn)
+    train_step = make_train_step(state.model, state.optimizer,
+                                 state.scheduler,
+                                 pipeline=train_ds.device_pipeline)
+    before = snapshot(model)
+    logs, step_ms, per_step, copied = [], [], [], []
+
+    def timed_step(img, labels, generator):
+        copied.append((img.dtype, img.numel() * img.element_size(),
+                       labels.numel() * labels.element_size()))
+        counts = step_counts(amp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        log = train_step(img, labels, generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - counts[k]
+                         for k, v in step_counts(amp).items()})
+        logs.append({k: float(v) for k, v in log.items()})
+        return log
+
+    generator = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with policy_scope(policy):
+            state, mean_log = train_one_epoch(0, timed_step, state, loader,
+                                              generator=generator,
+                                              fused_aug=True)
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        launches = step_counts(amp)
+        # the busy share of an epoch (loader included) and the
+        # augmentation's device time inside the step, over a profiled
+        # second epoch of three batches
+        loader.set_epoch(1)
+        short = [b for b, _ in zip(loader, range(3))]
+        split, kernels_ms, wall = transform_split(
+            lambda: train_one_epoch(1, train_step, state, iter(short),
+                                    generator=generator, fused_aug=True),
+            runs=1)
+        raw = [torch.as_tensor(t, device=device) for t in short[0][:2]]
+        with policy_scope(policy):
+            print_breakdown(f"deeplabv3 fused train step ({policy})",
+                            lambda: train_step(*raw, generator))
+    finally:
+        loader.close()
+    expected = {k: 0 for k in launches}
+    expected[RESIZE_KEY[amp]] = len(DEEPLAB_RESIZES_640)
+    for i, (log, counts) in enumerate(zip(logs, per_step)):
+        if counts != expected:
+            raise AssertionError(f"fused step {i + 1} launched {counts}, "
+                                 f"not {expected}")
+        if not all(math.isfinite(v) for v in log.values()):
+            raise AssertionError(f"fused step {i + 1}: non-finite {log}")
+    if any(flash_attention.launches.values()):
+        raise AssertionError("the flagship launched flash kernels")
+    if len(logs) != TRAIN_STEPS or any(c[0] != torch.uint8 for c in copied):
+        raise AssertionError(f"{len(logs)} steps, batches {copied[:1]}")
+    losses = [log["loss"] for log in logs]
+    # each step sees new images: the mean of the last three below the
+    # first three's
+    if not sum(losses[-3:]) < sum(losses[:3]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    after = snapshot(model)
+    still = [name for name, t in before.items()
+             if not name.endswith("num_batches_tracked")
+             and torch.equal(t, after[name])]
+    if still:
+        raise AssertionError(f"unchanged after {TRAIN_STEPS} fused steps: "
+                             f"{still}")
+    aug_ms = split.pop("augmentation", 0.0) / len(short)
+    print(f"deeplabv3 fused train ({policy}): " + json.dumps(dict(
+        batch=[n, AUG_SIZE, AUG_SIZE, 3], steps=TRAIN_STEPS, loss=losses,
+        epoch_mean=mean_log, ms_per_step=statistics.median(step_ms[1:]),
+        step_ms=step_ms, epoch_ms=epoch_ms,
+        loader_share=1.0 - sum(step_ms) / epoch_ms,
+        peak_memory_gb=peak_gb,
+        h2d_mb_per_step=dict(images_uint8=copied[0][1] / 1e6,
+                             masks_float32=copied[0][2] / 1e6),
+        augmentation_device_ms_per_step=aug_ms,
+        profiled_epoch=dict(steps=len(short), wall_ms=wall,
+                            device_ms=kernels_ms,
+                            busy_share=kernels_ms / wall,
+                            augmentation_device_ms_by_transform={
+                                k: v / len(short) for k, v in split.items()}),
+        launches=launches, resize_backward_per_step=per_step[0])),
+        flush=True)
+    n_val = schedule["val_batch_size"]
+    val_ds = SyntheticDataset(pipeline=str(VAL_TRANSFORM), length=2 * n_val,
+                              image_size=(AUG_SIZE, AUG_SIZE), seed=1)
+    val_loader = DataLoader(val_ds, batch_size=n_val,
+                            num_workers=LOADER_WORKERS,
+                            collate_fn=val_ds.collate_fn)
+    try:
+        validate = deeplab_validate(state, val_loader, policy,
+                                    pipeline=val_ds.device_pipeline,
+                                    what="deeplabv3 fused validate")
+    finally:
+        val_loader.close()
+    return {"train": launches, "validate": validate}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing measured")
@@ -1860,10 +2289,14 @@ def main():
     deeplab = deeplab_train_phase(device)
     deeplab_train_agreement_phase(device)
     deeplab_amp = deeplab_train_phase(device, amp=True)
-    # the flagship's evaluation paths: validation in float32 and under amp,
-    # TTA in float32
+    pipeline_phase(device)
+    fused = deeplab_fused_phase(device)
+    fused_amp = deeplab_fused_phase(device, amp=True)
+    # the flagship's evaluation paths: validation in float32 and under amp
+    # (on ready batches and through the val pipeline), TTA in float32
     eval_paths = (deeplab["validate"], deeplab["tta"],
-                  deeplab_amp["validate"])
+                  deeplab_amp["validate"], fused["validate"],
+                  fused_amp["validate"])
     # every confusion instance of a main path was held against the plain
     # version in the kernel phase
     path_instances = {*instances, *setr_launches["confusion_instances"],
@@ -1879,7 +2312,8 @@ def main():
     flagship, setr_row = rows[0], flash_rows[0]
     deeplab_resize = [r for r in resize_rows
                       if [r["shape"], r["size"]] in
-                      [[list(a), list(b)] for a, b in DEEPLAB_RESIZES]]
+                      [[list(a), list(b)] for a, b in
+                       (*DEEPLAB_RESIZES, *DEEPLAB_RESIZES_640)]]
     pool_row = next(r for r in deeplab_resize
                     if r["shape"] == [16, 512, 1, 1]
                     and r["dtype"] == "bfloat16")
@@ -1942,7 +2376,7 @@ def main():
         "also_replaces": "image_segmentation_lab_tpu/ops/pallas/"
                          "confusion.py:98",
         # the DeepLabV3 and SETR serving slices, the flagship's validation
-        # and TTA
+        # (also through the val pipeline) and TTA
         "launches": sum(path["logits"] + path["labels"] for path in
                         (launches, setr_launches_k1, amp_launches_k1,
                          *eval_paths)),
@@ -2060,8 +2494,10 @@ def main():
         "route": "cuda",
         "source": "image_segmentation_lab_tpu_torch/csrc/resize_backward.cu",
         "replaces": "image_segmentation_lab_tpu/utils/ops.py:74",
-        # the flagship's train steps, float32 and amp
-        "launches": sum(path["train"][k] for path in (deeplab, deeplab_amp)
+        # the flagship's train steps, float32 and amp, on ready batches
+        # and with the augmentation fused in
+        "launches": sum(path["train"][k] for path in
+                        (deeplab, deeplab_amp, fused, fused_amp)
                         for k in RESIZE_KEY.values()),
         "max_abs_err": 0.0,
         "ms": pool_row["ms"],

@@ -1,5 +1,7 @@
 """Config-dict builders of the core side (counterpart of
-``core/builder.py``): ``build_from_cfg`` and ``build_optimizer``."""
+``core/builder.py``): ``build_from_cfg`` and ``build_optimizer``, and the
+DATASET registry (``build_from_cfg(cfg, DATASET)`` builds the configs of
+``configs/dataset/``)."""
 
 from __future__ import annotations
 
@@ -8,8 +10,8 @@ from collections.abc import Mapping
 from typing import Any, Dict
 
 from ..registry import Register
-from . import optimizers  # noqa: F401  (registration)
-from .registry_hub import LR_SCHEDULER, OPTIMIZER
+from . import dataset, optimizers  # noqa: F401  (registration)
+from .registry_hub import DATASET, LR_SCHEDULER, OPTIMIZER
 
 
 def build_from_cfg(cfg: Dict[str, Any], registry: Register) -> Any:
@@ -36,4 +38,5 @@ def build_optimizer(cfg: Dict[str, Any], params, frozen_mask: Any = None):
     return OPTIMIZER.get(opt_type)(params, **cfg)
 
 
-__all__ = ["LR_SCHEDULER", "OPTIMIZER", "build_from_cfg", "build_optimizer"]
+__all__ = ["DATASET", "LR_SCHEDULER", "OPTIMIZER", "build_from_cfg",
+           "build_optimizer"]

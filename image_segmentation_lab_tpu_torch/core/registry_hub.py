@@ -1,7 +1,7 @@
 """The port's registries, one instance each, created in one place.
 
 Only the registries the ported slices fill exist so far; the others
-(datasets, samplers, ...) arrive with the modules that fill them.
+(samplers, initializers, ...) arrive with the modules that fill them.
 """
 
 from ..registry import Register
@@ -17,7 +17,8 @@ SEGMENTOR = Register("segmentor")
 LOSS = Register("loss")
 OPTIMIZER = Register("optimizer")
 LR_SCHEDULER = Register("lr_scheduler")
+DATASET = Register("dataset")
 
 __all__ = ["ACTIVATION", "CONVOLUTION", "DROPOUT", "NORMALIZATION",
            "BACKBONE", "NECK", "DECODEHEAD", "SEGMENTOR", "LOSS", "OPTIMIZER",
-           "LR_SCHEDULER"]
+           "LR_SCHEDULER", "DATASET"]

@@ -1,13 +1,16 @@
 """Train state and train step (counterpart of ``train_state.py``).
 
-``make_train_step(model, optimizer, scheduler=None)`` returns
-``train_step(img, gt, generator) -> log_vars``: ``forward_train`` (decode
-and aux heads, losses, ``acc_seg``), ``parse_losses``, ``backward``
-(through the flash-attention kernels on the card), the optimizer update,
-the LR scheduler's step and, in train mode, the BatchNorm running
-statistics.  Every dropout mask is drawn from ``generator`` (on the
-model's device), never from torch's global generator, as the JAX step
-takes its ``dropout_rng``.  The log values stay tensors on the device: the
+``make_train_step(model, optimizer, scheduler=None, pipeline=None)``
+returns ``train_step(img, gt, generator) -> log_vars``: with a
+``pipeline``, first the augmentation of the raw batch (``(N, H, W, C)``
+uint8 as the loader gives it, without grad), then ``forward_train``
+(decode and aux heads, losses, ``acc_seg``), ``parse_losses``,
+``backward`` (through the flash-attention kernels on the card), the
+optimizer update, the LR scheduler's step and, in train mode, the
+BatchNorm running statistics.  Every draw comes from ``generator`` (on the
+model's device), never from torch's global generator: the augmentation's
+first, the dropout masks' second, as the JAX step splits its key into
+``aug_rng, dropout_rng``.  The log values stay tensors on the device: the
 step makes no host synchronisation.
 
 The step reads the global compute policy, as the JAX step does:
@@ -30,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from .core.builder import LR_SCHEDULER, build_from_cfg, build_optimizer
 from .models.basic.drop import use_generator
@@ -74,12 +78,16 @@ def create_train_state(model: nn.Module, optimizer_cfg: Dict,
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
-                    scheduler=None):
-    """One train step per call; ``img (N, C, H, W)`` float, ``gt (N, H,
-    W)`` integer labels, ``generator`` a ``torch.Generator`` on the
-    model's device."""
+                    scheduler=None, pipeline=None):
+    """One train step per call; ``img (N, C, H, W)`` float (with a
+    ``pipeline``: the raw ``(N, H, W, C)`` batch, uint8 or float), ``gt
+    (N, H, W)`` labels, ``generator`` a ``torch.Generator`` on the model's
+    device."""
 
     def train_step(img, gt, generator: torch.Generator) -> Dict:
+        if pipeline is not None:
+            with record_function("augmentation"):
+                img, gt = pipeline(generator, img, gt)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with torch.enable_grad(), use_generator(generator):

@@ -18,8 +18,13 @@ bf16 input is interpolated with float32 arithmetic inside
 as the JAX resize computes it.  Under grad, a bilinear resize goes through
 ``BilinearResize``, whose backward is ``ops/resize_backward.py``: float32
 sums rounded once, with no atomics, where ``F.interpolate``'s own CUDA
-backward adds with atomics (in bf16 for bf16 tensors).  Bicubic and nearest
-keep ``F.interpolate``'s backward.
+backward adds with atomics (in bf16 for bf16 tensors).  Bicubic keeps
+``F.interpolate``'s backward.
+
+Nearest takes the JAX package's rule, ``src = min(floor(dst * in / out),
+in - 1)`` with the ratio in float64, as two index selections:
+``F.interpolate``'s nearest mode computes the ratio in float32 and picks
+another row at some sizes (84 -> 160, 112 -> 48, 600 -> 288, ...).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import warnings
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -51,6 +57,12 @@ class BilinearResize(torch.autograd.Function):
                 None, None)
 
 
+def _nearest_index(in_size: int, out_size: int, device) -> torch.Tensor:
+    rows = np.minimum(np.floor(np.arange(out_size) * (in_size / out_size)),
+                      in_size - 1)
+    return torch.from_numpy(rows.astype(np.int64)).to(device)
+
+
 def resize(input, size: Sequence[int], mode: str = "bilinear",
            align_corners: Optional[bool] = None, warning: bool = True):
     size = tuple(int(s) for s in size)
@@ -65,6 +77,10 @@ def resize(input, size: Sequence[int], mode: str = "bilinear",
                 f"satisfy (out-1) % (in-1) == 0")
     if (H, W) == size:
         return input
+    if mode == "nearest":
+        return input.index_select(
+            2, _nearest_index(H, size[0], input.device)).index_select(
+            3, _nearest_index(W, size[1], input.device))
     with torch.autocast(input.device.type, enabled=False):
         if (mode == "bilinear" and torch.is_grad_enabled()
                 and input.requires_grad):

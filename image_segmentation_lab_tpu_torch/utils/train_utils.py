@@ -2,13 +2,22 @@
 ``utils/train_utils.py``): ``train_one_epoch``, ``validate_one_epoch`` and
 ``pth_metadata``.
 
-A data loader is any iterable of ``(images (N, C, H, W), labels (N, H,
-W), infos)`` batches, as float and integer arrays or tensors; a batch
-already on the model's device is used where it is.  The log values are
-summed on the device and read back once an epoch, so the host never waits
-on a step.  On-device augmentation (``pipeline``, ``fused_aug``) comes
-with the data pipeline and raises until then; checkpoint writing
-(``save_model``) comes with the CLIs.
+A data loader is any iterable of ``(images, labels, infos)`` batches, as
+arrays or tensors; a batch already on the model's device is used where it
+is.  Where the augmentation runs:
+
+* ``fused_aug=True``: the train step was built with the pipeline
+  (``make_train_step(..., pipeline=...)``); the loader's raw ``(N, H, W,
+  C)`` batches go to the card as they are (uint8: a quarter of the bytes
+  of float32) and the step augments them;
+* ``pipeline``: the pipeline augments each raw batch before the step;
+* neither: the batches are ``(N, C, H, W)`` images, ready for the model.
+
+``validate_one_epoch`` takes a ``pipeline`` too (the val YAML: Resize and
+Normalize), drawing from a generator seeded with ``epoch * 100003 +
+batch_idx``, as the JAX package's key.  The log values are summed on the
+device and read back once an epoch, so the host never waits on a step.
+Checkpoint writing (``save_model``) comes with the CLIs.
 """
 
 from __future__ import annotations
@@ -17,13 +26,6 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-
-
-def _no_pipeline(pipeline, fused_aug=False):
-    if pipeline is not None or fused_aug:
-        raise NotImplementedError(
-            "on-device augmentation comes with the data pipeline, which is "
-            "not ported yet (ROADMAP Queue 1)")
 
 
 def _to_device(images, labels, device):
@@ -46,9 +48,11 @@ def train_one_epoch(epoch: int,
                     fused_aug: bool = False) -> tuple:
     """One epoch of ``train_step(img, gt, generator)`` over ``dataloader``,
     advancing ``state.step`` per batch; returns ``(state, mean log
-    vars)``.  Every step draws its dropout masks from ``generator`` (on
-    the model's device; by default seeded with ``epoch``)."""
-    _no_pipeline(pipeline, fused_aug)
+    vars)``.  Every draw (augmentation, dropout) comes from ``generator``
+    (on the model's device; by default seeded with ``epoch``)."""
+    if fused_aug and pipeline is not None:
+        raise ValueError("fused_aug augments inside the train step; a "
+                         "pipeline as well would augment twice")
     if hasattr(dataloader, "set_epoch"):
         dataloader.set_epoch(epoch)
     device = next(state.model.parameters()).device
@@ -57,7 +61,13 @@ def train_one_epoch(epoch: int,
     running: Dict[str, Any] = {}
     count = 0
     for images, labels, _ in dataloader:
-        images, labels = _to_device(images, labels, device)
+        if fused_aug:  # the raw batch; the step augments it
+            images = torch.as_tensor(images, device=device)
+            labels = torch.as_tensor(labels, device=device)
+        elif pipeline is not None:
+            images, labels = pipeline(generator, images, labels)
+        else:
+            images, labels = _to_device(images, labels, device)
         log_vars = train_step(images, labels, generator)
         state.step += 1
         count += 1
@@ -72,16 +82,21 @@ def validate_one_epoch(epoch: int,
                        dataloader,
                        evaluator,
                        pipeline=None) -> tuple:
-    """``eval_step(img, gt)`` per batch, each head's logits into
-    ``evaluator.process`` with the batch's labels (on the model's device,
-    where the step took them), then ``evaluator.compute_metrics()``;
-    returns ``(mean log vars, metrics)``."""
-    _no_pipeline(pipeline)
+    """``eval_step(img, gt)`` per batch (after ``pipeline``, where given),
+    each head's logits into ``evaluator.process`` with the batch's labels
+    (on the model's device, where the step took them), then
+    ``evaluator.compute_metrics()``; returns ``(mean log vars,
+    metrics)``."""
     device = next(state.model.parameters()).device
     running: Dict[str, Any] = {}
     count = 0
     for batch_idx, (images, labels, infos) in enumerate(dataloader):
-        images, labels = _to_device(images, labels, device)
+        if pipeline is not None:
+            generator = torch.Generator(device=device).manual_seed(
+                epoch * 100003 + batch_idx)
+            images, labels = pipeline(generator, images, labels)
+        else:
+            images, labels = _to_device(images, labels, device)
         seg_logits, log_vars = eval_step(images, labels)
         count += 1
         for k, v in log_vars.items():

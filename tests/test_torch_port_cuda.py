@@ -725,3 +725,169 @@ def test_flash_without_library_raises(cuda, monkeypatch, tmp_path):
         flash_attention.flash_attention_backward(
             *(t.to(torch.bfloat16) for t in (q, k, v, o)), lse,
             do.to(torch.bfloat16), 0.125)
+
+
+# ------------------------------------------------- the augmentation pipeline
+# The pinned Kvasir pipeline (every draw a constant) and leaf transforms at
+# pinned parameters or with draws made on the CPU: the card against the
+# port on the CPU, at tests/test_torch_port_data.py's tolerances (1e-2 on
+# the 0-255 scale, 2e-4 after Normalize; Rotate's nearest mask taps may
+# differ only at half-integer source coordinates, at most 0.1 %).
+
+PINNED_YAML = "tests/data/kvasir_train_transform_pinned.yaml"
+
+
+def raw_batch(name, n, h, w):
+    g = torch.Generator().manual_seed(case_seed(name))
+    imgs = torch.randint(0, 256, (n, h, w, 3), generator=g,
+                         dtype=torch.uint8)
+    masks = torch.randint(0, 2, (n, h, w), generator=g).float()
+    return imgs, masks
+
+
+def rotate_flips_ok(out, ref, angle_deg):
+    """Mask taps off only within 1e-3 of a half-integer source coordinate,
+    at most 0.1 % of the pixels."""
+    import math
+    off = (out != ref).numpy()
+    h, w = off.shape[1:]
+    a = math.radians(angle_deg)
+    yy, xx = np.meshgrid(np.arange(h) - (h - 1) / 2,
+                         np.arange(w) - (w - 1) / 2, indexing="ij")
+    src = [math.cos(a) * yy + math.sin(a) * xx + (h - 1) / 2,
+           -math.sin(a) * yy + math.cos(a) * xx + (w - 1) / 2]
+    near = np.zeros_like(off[0])
+    for v in src:
+        near |= np.abs(v - np.floor(v) - 0.5) < 1e-3
+    return not (off & ~near[None]).any() and off.mean() <= 1e-3
+
+
+def pinned_spec(size):
+    from image_segmentation_lab_tpu_torch.data import albu_yaml
+    spec = albu_yaml.load(PINNED_YAML)
+    spec["transform"]["transforms"][0].update(height=size, width=size)
+    return spec
+
+
+@pytest.mark.parametrize("size", [48, 64])
+def test_pinned_pipeline_on_the_card_matches_the_cpu(cuda, size):
+    """48² inputs: at 48 the Resize is the identity, at 64 it runs."""
+    from image_segmentation_lab_tpu_torch.data.pipeline import Pipeline
+    pipe = Pipeline.from_dict(pinned_spec(size))
+    imgs, masks = raw_batch(f"pinned_{size}", 4, 48, 48)
+    out, om = pipe(torch.Generator(device=cuda).manual_seed(0),
+                   imgs.to(cuda), masks.to(cuda))
+    ref, rm = pipe(torch.Generator().manual_seed(0), imgs, masks)
+    assert out.device.type == cuda.type and out.shape == (4, 3, size, size)
+    assert om.dtype == torch.int32
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=2e-4)
+    assert rotate_flips_ok(om.cpu(), rm, 30.0)
+
+
+LEAF_CASES = {
+    "rotate_reflect101": dict(name="Rotate", limit=(-90, 90), border_mode=4),
+    "rotate_constant": dict(name="Rotate", limit=(-90, 90), fill=9.0),
+    "blur": dict(name="Blur", blur_limit=(3, 7)),
+    "gaussian_blur": dict(name="GaussianBlur", blur_limit=(3, 9),
+                          sigma_limit=(0.5, 2.0)),
+    "motion_blur": dict(name="MotionBlur", blur_limit=(3, 13)),
+    "defocus": dict(name="Defocus", radius=(3, 10), alias_blur=(0.1, 0.5)),
+    "glass_blur": dict(name="GlassBlur", sigma=2.5, max_delta=4,
+                       iterations=2),
+    "hue_saturation_value": dict(name="HueSaturationValue"),
+    "iso_noise": dict(name="ISONoise", color_shift=(0.05, 0.2)),
+    "brightness_contrast": dict(name="RandomBrightnessContrast"),
+    "gamma": dict(name="RandomGamma", gamma_limit=(60, 140)),
+    "pad_reflect": dict(name="PadIfNeeded", min_height=70, min_width=41,
+                        border_mode=2),
+    "random_crop": dict(name="RandomCrop", height=30, width=33),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LEAF_CASES))
+def test_transform_with_cpu_draws_on_the_card_matches_the_cpu(cuda, case):
+    """Per-image parameters drawn once on the CPU, applied on both."""
+    from image_segmentation_lab_tpu_torch.data import transforms as T
+    kw = dict(LEAF_CASES[case])
+    t = T.TRANSFORMS[kw.pop("name")](p=1.0, **kw)
+    imgs, masks = raw_batch(case, 4, 40, 52)
+    x = imgs.permute(0, 3, 1, 2).float().contiguous()
+    params = t.sample(torch.Generator().manual_seed(case_seed(case)), 4,
+                      tuple(x.shape[1:]))
+    ref, rm = t.apply(x, masks, params)
+    out, om = t.apply(x.to(cuda), masks.to(cuda),
+                      {k: v.to(cuda) for k, v in params.items()})
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=0,
+                               atol=1e-2)
+    if isinstance(t, T.Rotate):
+        for i, angle in enumerate(params["angle"].tolist()):
+            assert rotate_flips_ok(om[i:i + 1].cpu(), rm[i:i + 1], angle)
+    else:
+        assert torch.equal(om.cpu(), rm)
+
+
+# a DeepLabV3 of the flagship's structure at depth 18, stage widths 8-64,
+# with the flagship's losses and no head dropout
+TINY_FLAGSHIP = dict(
+    type="EncoderDecoder",
+    backbone=dict(type="ResNetV1c", depth=18, num_stages=4,
+                  out_indices=(0, 1, 2, 3), dilations=(1, 1, 2, 4),
+                  strides=(1, 2, 1, 1), norm_cfg=dict(type="SyncBatchNorm"),
+                  contract_dilation=True, stem_channels=8, base_channels=8),
+    decode_head=dict(type="ASPPHead", in_channels=64, in_index=3,
+                     channels=16, dilations=(1, 12, 24, 36),
+                     dropout_ratio=0.0, num_classes=2,
+                     norm_cfg=dict(type="SyncBatchNorm"),
+                     align_corners=False,
+                     loss_decode=dict(type="CrossEntropyLoss",
+                                      use_sigmoid=True, loss_weight=1.0)),
+    auxiliary_head=dict(type="FCNHead", in_channels=32, in_index=2,
+                        channels=8, num_convs=1, concat_input=False,
+                        dropout_ratio=0.0, num_classes=2,
+                        norm_cfg=dict(type="SyncBatchNorm"),
+                        align_corners=False,
+                        loss_decode=dict(type="CrossEntropyLoss",
+                                         use_sigmoid=True, loss_weight=1.0)),
+    train_cfg=dict(), test_cfg=dict(mode="whole"))
+
+
+def test_fused_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One step of the tiny flagship with the pinned pipeline fused in,
+    from the same weights and raw uint8 batch: the losses (rtol 1e-4) and
+    every parameter and BN statistic after the update (rtol 1e-4, atol
+    1e-5), with the resize backward kernel launched 3 times."""
+    import copy
+
+    from image_segmentation_lab_tpu_torch.data.pipeline import Pipeline
+    from image_segmentation_lab_tpu_torch.models.builder import \
+        build_segmentor
+    from image_segmentation_lab_tpu_torch.train_state import (
+        create_train_state, make_train_step)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    torch.manual_seed(case_seed("fused_step"))
+    cpu_model = build_segmentor(copy.deepcopy(TINY_FLAGSHIP))
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    imgs, masks = raw_batch("fused_step", 4, 48, 48)
+    optimizer = dict(type="SGD", lr=0.01, momentum=0.9, weight_decay=5e-4)
+    logs = []
+    launched = dict(resize_backward.launches)
+    for model, device in ((cpu_model, "cpu"), (card_model, cuda)):
+        state = create_train_state(model, optimizer)
+        step = make_train_step(state.model, state.optimizer,
+                               pipeline=Pipeline.from_dict(pinned_spec(48)))
+        logs.append(step(imgs.to(device), masks.to(device),
+                         torch.Generator(device=device).manual_seed(0)))
+    torch.cuda.synchronize()
+    assert resize_backward.launches["resize_backward"] \
+        - launched["resize_backward"] == 3
+    for key, ref in logs[0].items():
+        np.testing.assert_allclose(logs[1][key].cpu().numpy(), ref.numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=key)
+    card_state = card_model.state_dict()
+    for key, ref in cpu_model.state_dict().items():
+        if not key.endswith("num_batches_tracked"):
+            np.testing.assert_allclose(card_state[key].cpu().numpy(),
+                                       ref.numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=key)

@@ -50,6 +50,8 @@ from image_segmentation_lab_tpu_torch.core.evaluation import \
     SegEvaluator  # noqa: E402
 from image_segmentation_lab_tpu_torch.core.fileio import \
     load_python_config  # noqa: E402
+from image_segmentation_lab_tpu_torch.data.pipeline import \
+    Pipeline  # noqa: E402
 from image_segmentation_lab_tpu_torch.models.builder import \
     build_segmentor  # noqa: E402
 from image_segmentation_lab_tpu_torch.utils import train_utils  # noqa: E402
@@ -183,12 +185,20 @@ def test_train_one_epoch_matches_jax(flagship):
 
 
 def test_train_loops_raise_on_a_pipeline(flagship):
+    """A pipeline beside ``fused_aug`` (the step augments already) and a
+    pipeline over batches that are not the loader's raw ``(N, H, W, C)``
+    raise."""
     _, state = fresh_states(flagship)
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        train_utils.train_one_epoch(0, None, state, Loader(), fused_aug=True)
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        train_utils.validate_one_epoch(0, None, state, Loader(), None,
-                                       pipeline=object())
+    pipeline = Pipeline.from_yaml("configs/augmentation/"
+                                  "kvasir_val_transform.yaml")
+    with pytest.raises(ValueError, match="pipeline"):
+        train_utils.train_one_epoch(0, None, state, Loader(),
+                                    pipeline=pipeline, fused_aug=True)
+    img, gt = batch(seed=30)
+    with pytest.raises(ValueError, match="pipeline takes images"):
+        train_utils.validate_one_epoch(0, None, state,
+                                       Loader([(to_nchw(img), gt, {})]),
+                                       None, pipeline=pipeline)
 
 
 EVAL_CASES = {"two_channel": False, "one_channel": True}
