@@ -18,8 +18,9 @@ printing its own lines; any failure raises and the exit code is not 0:
    with stack and local memory 0, so nothing spills;
 3. confusion kernel, both entries (logits, K1; labels, K2): against its
    plain PyTorch version (exact equality) at the eval batches of both
-   slices, at a Cityscapes-sized batch in float32 and bfloat16, and at a
-   ragged shape with ignored and out-of-range labels; one call of each
+   slices, at a Cityscapes-sized batch in float32 and bfloat16, at a
+   ragged shape with ignored and out-of-range labels, and at the smallest
+   and largest Kvasir image of phase 17's ragged path; one call of each
    entry must be exactly one device kernel (no fill, no cast), and every
    kernel instance that a main path launches (phases 6-8) must have been
    held here; beside it ``torch.argmax`` + ``torch.bincount`` of the (gt,
@@ -148,7 +149,28 @@ printing its own lines; any failure raises and the exit code is not 0:
    transform, and one step's breakdown by kernel class; then ``validate_one_epoch(..., pipeline=
    val_dataset.device_pipeline)`` over two batches of 8 × 640², held as
    phase 12's validation (2 K1 launches a batch, counts = argmax +
-   bincount).
+   bincount);
+17. the CLIs: ``image_segmentation_lab_tpu_torch.train.main`` in this
+   process under ``torch.profiler`` on a Kvasir-shaped synthetic dataset
+   (``SyntheticDataset`` 640² items through the Kvasir YAMLs,
+   ``ignore_index=-1``, 48 train items: 3 steps of the schedule's 16, 16
+   val items with ``return_ori_seg_gt``) at the flagship's full width
+   with the kvasir schedule as it is (amp, deterministic, SGD and StepLR)
+   and ``--epochs 1``: step and epoch times, the checkpoints' sizes and
+   write times, validation ms a batch, the launches (4 of K1, 9 of the
+   bf16 resize backward, no other), device time by kernel class;
+   ``last.pth`` and ``best.pth`` load back strictly into fresh port
+   models; then ``val.main`` on ``best.pth`` with ``--amp`` (its mIoU
+   within 0.05 points of the train run's validation recorded in
+   ``best.pth``; 2 K1 launches a batch) and with ``--tta`` (1 a batch);
+   then the ragged evaluator path on the card: the model's bf16 logits for
+   eight synthetic images of Kvasir sizes (529 × 622 to 1072 × 1350)
+   brought to 640² by the val YAML, with labels at their own sizes, through
+   ``SegEvaluator.process``: 16 K2 launches, counts equal to the same path
+   on the CPU exactly, and each image's K2 counts equal to argmax +
+   bincount; then the fused amp step with deterministic algorithms off and
+   on (the schedule's ``deterministic=True``), with a breakdown of each.
+   The run directory is deleted after.
 
 Kernel times: the wrapper's median of 20 calls by CUDA events and the
 kernel's own device time from ``torch.profiler`` (for SDPA's forward, of
@@ -191,12 +213,16 @@ from image_segmentation_lab_tpu_torch.core.dataset import (DataLoader,
                                                            SyntheticDataset)
 from image_segmentation_lab_tpu_torch.core.dataset.synthetic import \
     make_synthetic_item
+from image_segmentation_lab_tpu_torch import train as train_cli
+from image_segmentation_lab_tpu_torch import val as val_cli
 from image_segmentation_lab_tpu_torch.core.evaluation import SegEvaluator
 from image_segmentation_lab_tpu_torch.core.fileio import load_python_config
+from image_segmentation_lab_tpu_torch.core.initialize.checkpoint import \
+    load_file
 from image_segmentation_lab_tpu_torch.core.inference import (inference_model,
                                                              init_model)
-from image_segmentation_lab_tpu_torch.core.mixed_precision import \
-    policy_scope
+from image_segmentation_lab_tpu_torch.core.mixed_precision import (
+    amp_policy, policy_scope)
 from image_segmentation_lab_tpu_torch.data import transforms as aug
 from image_segmentation_lab_tpu_torch.data.pipeline import Pipeline
 from image_segmentation_lab_tpu_torch.models.backbones import vit
@@ -224,6 +250,11 @@ KERNEL_SHAPES = [  # (N, C, H, W), num_classes, dtype
     ((2, 19, 1024, 2048), 19, torch.float32),
     ((2, 19, 1024, 2048), 19, torch.bfloat16),
     ((3, 5, 97, 131), 5, torch.float32),
+    # K2's shapes on the ragged evaluator path: one Kvasir image at its own
+    # size, the smallest (odd pixel count: one pixel a thread) and the
+    # largest (16-byte packets)
+    ((1, 2, 529, 622), 2, torch.float32),
+    ((1, 2, 1072, 1350), 2, torch.float32),
 ]
 FLASH_SHAPES = [  # (N, h, Lq, Lk, d), dtype
     ((8, 6, 1601, 1601, 64), torch.float32),   # SETR ViT-S/16, 640², b8
@@ -324,6 +355,29 @@ AMP_GRAD_SHARE = 0.25
 # the same bits, or, where an op has no deterministic implementation, this
 # relative norm per tensor
 AMP_DETERMINISTIC_SHARE = 1e-6
+# phase 17: the CLIs on a Kvasir-shaped synthetic dataset at AUG_SIZE²;
+# CLI_TRAIN_STEPS steps of the schedule's batch, two val batches
+CLI_TRAIN_STEPS = 3
+CLI_VAL_BATCHES = 2
+CLI_DATASET = """
+dataset = dict(
+    train=dict(type='SyntheticDataset', length={train}, ignore_index=-1,
+               image_size=({size}, {size}), pipeline='{train_yaml}'),
+    val=dict(type='SyntheticDataset', length={val}, ignore_index=-1,
+             image_size=({size}, {size}), seed=1, return_ori_seg_gt=True,
+             pipeline='{val_yaml}'))
+"""
+# the val CLI's mIoU on the train run's best.pth against the train run's
+# own validation (the same bf16 forward on the same images), in points
+CLI_MIOU_TOL = 0.05
+# Kvasir-SEG image sizes (rows, columns) for the ragged evaluator path on
+# the card, from the smallest to the largest this check takes; K2 runs one
+# pixel a thread where rows x columns is not a multiple of 4
+KVASIR_SIZES = [(529, 622), (576, 720), (622, 529), (720, 576),
+                (913, 1002), (1010, 1280), (1024, 1280), (1072, 1350)]
+# train steps a block when timing the fused amp step with deterministic
+# algorithms on and off
+DETERMINISM_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
@@ -2213,6 +2267,315 @@ def deeplab_fused_phase(device, amp=False):
     return {"train": launches, "validate": validate}
 
 
+def timed_call(fn, times):
+    """``fn`` that appends each call's milliseconds (synchronised) to
+    ``times``."""
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
+def timed_factory(module, name, times):
+    """Patch ``module.name`` (a step factory) so that the steps it makes
+    time their calls into ``times``."""
+    factory = getattr(module, name)
+    return mock.patch.object(module, name, lambda *a, **k: timed_call(
+        factory(*a, **k), times))
+
+
+def quiet_run(main, argv):
+    """``main(argv)`` with its standard output captured (the model, the
+    class tables); its epoch, result and checkpoint lines are printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    keep = [line for line in out.getvalue().splitlines()
+            if re.match(r"(epoch|done|model parameters|results|val loss)",
+                        line)]
+    print("\n".join(f"  | {line}" for line in keep), flush=True)
+    if rc != 0:
+        raise AssertionError(f"{main.__module__}.main returned {rc}")
+
+
+def confusion_counts():
+    return {k: confusion.launches[k] for k in ("logits", "labels")}
+
+
+def cli_phase(device):
+    """Phase 17: the train CLI, then the val CLI on its ``best.pth`` with
+    ``--amp`` and with ``--tta``, in this process, on a Kvasir-shaped
+    synthetic dataset; then the ragged evaluator path on the card and the
+    cost of deterministic algorithms in the fused amp step.  The launches
+    of K1, K2 and the resize backward on the CLI path."""
+    schedule = flagship_schedule()
+    n, n_val = schedule["train_batch_size"], schedule["val_batch_size"]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        dataset_cfg = tmp / "kvasir_shaped_synthetic.py"
+        dataset_cfg.write_text(CLI_DATASET.format(
+            train=n * CLI_TRAIN_STEPS, val=n_val * CLI_VAL_BATCHES,
+            size=AUG_SIZE, train_yaml=TRAIN_TRANSFORM, val_yaml=VAL_TRANSFORM))
+        work = tmp / "runs"
+        common = ["--network-cfg", str(CONFIG), "--dataset-cfg",
+                  str(dataset_cfg), "--work-dir", str(work), "--device",
+                  str(device)]
+        launches, best = cli_train(common, work)
+        val_launches = cli_validate(common, work, best, n_val)
+        ragged = ragged_phase(device, best)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        amp_policy(False)
+    determinism_cost(device)
+    k1 = launches["logits"] + sum(v["logits"] for v in val_launches.values())
+    path = dict(logits=k1, labels=ragged["launches"]["labels"],
+                resize_backward_bf16=launches["resize_backward_bf16"])
+    if not all(path.values()):
+        raise AssertionError(f"a kernel of the CLI path never launched: "
+                             f"{path}")
+    instances = {*launches["instances"], *ragged["instances"],
+                 *(k for v in val_launches.values() for k in v["instances"])}
+    return path, instances
+
+
+def cli_train(common, work):
+    """The train CLI for one epoch of CLI_TRAIN_STEPS steps under
+    ``torch.profiler``: step and epoch times, checkpoint sizes and write
+    times, validation ms a batch, launches; ``last.pth`` and ``best.pth``
+    load back strictly into fresh port models."""
+    from torch.profiler import ProfilerActivity, profile
+    times = dict(step=[], epoch=[], val=[], save=[])
+    saved = []
+    save_model = train_cli.save_model
+
+    def timed_save(state, meta, path, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_model(state, meta, path, **kwargs)
+        saved.append(dict(file=Path(path).name,
+                          write_s=time.perf_counter() - t0,
+                          gb=Path(path).stat().st_size / 1e9))
+
+    reset_counts()
+    with timed_factory(train_cli, "make_train_step", times["step"]), \
+            timed_factory(train_cli, "make_eval_step", times["val"]), \
+            mock.patch.object(train_cli, "train_one_epoch", timed_call(
+                train_cli.train_one_epoch, times["epoch"])), \
+            mock.patch.object(train_cli, "save_model", timed_save), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        quiet_run(train_cli.main, common + [
+            "--schedule-cfg", str(SCHEDULE), "--epochs", "1"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the schedule's deterministic algorithms hold for the train CLI's
+    # process; the val CLI runs in a process of its own
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    launches = dict(confusion_counts(), **step_counts(amp=True),
+                    instances=dict(confusion.instances))
+    expected = dict(logits=2 * CLI_VAL_BATCHES, labels=0,
+                    resize_backward_bf16=3 * CLI_TRAIN_STEPS)
+    if any(launches[k] != v for k, v in expected.items()) or any(
+            launches[k] for k in step_counts(amp=True)
+            if k not in expected):
+        raise AssertionError(f"the train CLI launched {launches}, not "
+                             f"{expected}")
+    classes, kernels = {}, {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            ms = evt.self_device_time_total / 1e3
+            kernels[evt.key] = ms
+            classes[kernel_class(evt.key)] = classes.get(
+                kernel_class(evt.key), 0.0) + ms
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    weights = work / "train" / "exp" / "weights"
+    for name in ("last.pth", "best.pth"):
+        init_model(CONFIG, checkpoint=weights / name, device="cpu")
+    if len(times["step"]) != CLI_TRAIN_STEPS or len(saved) != 2:
+        raise AssertionError(f"{len(times['step'])} steps, saved {saved}")
+    print("cli train: " + json.dumps(dict(
+        steps=CLI_TRAIN_STEPS, step_ms=times["step"],
+        ms_per_step=statistics.median(times["step"][1:]),
+        epoch_ms=times["epoch"][0], val_ms_per_batch=times["val"],
+        wall_ms=wall, checkpoints=saved, launches=launches,
+        profiled=dict(device_ms=busy, busy_share=busy / wall,
+                      by_class=dict(sorted(classes.items(),
+                                           key=lambda kv: -kv[1])),
+                      top_kernels=[[name[:90], ms] for name, ms in top]),
+        strict_reload=["last.pth", "best.pth"])), flush=True)
+    return launches, weights / "best.pth"
+
+
+def cli_validate(common, work, best, n_val):
+    """The val CLI on ``best`` with ``--amp`` (its decode mIoU within
+    CLI_MIOU_TOL of the train run's own validation, recorded in
+    ``best.pth``) and with ``--tta``: ms a batch, launches."""
+    recorded = load_file(best)["metadata"]
+    out = {}
+    for what, flags, factory in (
+            ("amp", ["--amp"], "make_eval_step"),
+            ("tta", ["--tta"], "make_tta_eval_step")):
+        times = []
+        reset_counts()
+        argv = common + ["--checkpoint", str(best), "--batch-size",
+                         str(n_val), "--num-workers", str(LOADER_WORKERS),
+                         "--name", what] + flags
+        with timed_factory(val_cli, factory, times):
+            quiet_run(val_cli.main, argv)
+        launches = dict(confusion_counts(),
+                        instances=dict(confusion.instances))
+        per_batch = 2 if what == "amp" else 1
+        if (launches["logits"] != per_batch * CLI_VAL_BATCHES
+                or launches["labels"]):
+            raise AssertionError(f"val --{what} launched {launches}")
+        results = json.loads((work / "val" / what /
+                              "results.json").read_text())
+        check_metrics(results["metrics"])
+        miou = results["metrics"]["decode"]["mIoU"]
+        diff = abs(miou - recorded["metric.decode.mIoU"])
+        if what == "amp" and diff > CLI_MIOU_TOL:
+            raise AssertionError(f"val --amp mIoU {miou} vs the train run's "
+                                 f"{recorded['metric.decode.mIoU']}")
+        out[what] = launches
+        print(f"cli val --{what}: " + json.dumps(dict(
+            ms_per_batch=times, miou=miou,
+            train_run_miou=recorded["metric.decode.mIoU"],
+            miou_difference=diff, losses=results["losses"],
+            launches=launches)), flush=True)
+    return out
+
+
+def ragged_phase(device, best):
+    """The ragged evaluator path on the card: the model of ``best`` (bf16
+    policy) on eight synthetic images of KVASIR_SIZES through the val YAML
+    (to AUG_SIZE² on the card), the logits back to each image's own size
+    (float32 blend), argmax and K2 once an image and head; the counts equal
+    the same path on the CPU exactly, and each image's K2 counts equal
+    argmax + bincount."""
+    model = init_model(CONFIG, checkpoint=best, device=device)
+    pipe = Pipeline.from_yaml(VAL_TRANSFORM)
+    gen = torch.Generator(device=device).manual_seed(0)
+    images, masks, labels = [], [], []
+    for i, size in enumerate(KVASIR_SIZES):
+        image, mask = make_synthetic_item(i, size, seed=3)
+        mask[:8] = -1  # ignored rows
+        x, m = pipe(gen, image[None], mask[None])
+        images.append(x)
+        masks.append(m)
+        labels.append(mask)
+    x, m = torch.cat(images), torch.cat(masks)
+    eval_step = make_eval_step(model)
+
+    def evaluator():
+        return SegEvaluator(epoch=0, num_classes=2,
+                            class_names=["background", "polyp"],
+                            palette=[[0, 0, 0], [255, 255, 255]],
+                            ignore_index=-1, show_result=False)
+
+    with policy_scope("bf16"):
+        step_ms = timed_batches(lambda: eval_step(x, m), runs=3)
+        seg_logits, _ = eval_step(x, m)
+    card = evaluator()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.process(0, seg_logits, {"ori_gt": labels})
+    torch.cuda.synchronize()
+    process_ms = (time.perf_counter() - t0) * 1e3
+    launches = confusion_counts()
+    instances = dict(confusion.instances)
+    heads = len(seg_logits)
+    if launches != dict(logits=0, labels=heads * len(KVASIR_SIZES)):
+        raise AssertionError(f"the ragged path launched {launches}")
+    host = evaluator()
+    host.process(0, {k: v.cpu() for k, v in seg_logits.items()},
+                 {"ori_gt": labels})
+    for head, sums in host.results.items():
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(card.results[head], sums)):
+            raise AssertionError(f"{head}: the card's ragged counts "
+                                 f"{card.results[head]} != the CPU's {sums}")
+    for head, logits in seg_logits.items():
+        for i, label in enumerate(labels):
+            gt = torch.as_tensor(label, device=device).to(torch.int32)
+            pred = card.class_map(logits[i], label.shape)
+            k2 = confusion.confusion_histograms_from_labels(pred, gt, 2, -1)
+            valid = (gt >= 0) & (gt < 2)
+            matrix = torch.bincount(gt[valid].long() * 2 + pred[valid].long(),
+                                    minlength=4).view(2, 2).float()
+            library = torch.stack([matrix.diagonal(), matrix.sum(0),
+                                   matrix.sum(1)])
+            if not torch.equal(k2, library):
+                raise AssertionError(f"{head} image {i}: K2 {k2} != argmax "
+                                     f"+ bincount {library}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics = card.compute_metrics()
+    check_metrics(metrics)
+    print("ragged evaluator: " + json.dumps(dict(
+        sizes=KVASIR_SIZES, logits=list(seg_logits["decode"].shape),
+        logits_dtype=str(seg_logits["decode"].dtype),
+        eval_step_ms=step_ms, process_ms=process_ms,
+        ms_per_batch=step_ms + process_ms, launches=launches,
+        instances=instances, counts_equal_cpu=True,
+        k2_equal_argmax_bincount=True, metrics=summarize(metrics))),
+        flush=True)
+    return dict(launches=launches, instances=instances)
+
+
+def determinism_cost(device):
+    """The fused amp train step of the CLI (the kvasir schedule's batch at
+    AUG_SIZE², augmentation fused in) with deterministic algorithms off
+    and on, DETERMINISM_STEPS steps a block, blocks alternating twice."""
+    n = flagship_schedule()["train_batch_size"]
+    model = init_model(CONFIG, device=device)
+    randomize_(model, seed=0)
+    optimizer_cfg, lr_config, _ = schedule_cfg()
+    state = create_train_state(model, optimizer_cfg, lr_config)
+    dataset = SyntheticDataset(pipeline=str(TRAIN_TRANSFORM), length=n,
+                               image_size=(AUG_SIZE, AUG_SIZE))
+    images, masks, _ = dataset.collate_fn([dataset[i] for i in range(n)])
+    raw = (torch.as_tensor(images, device=device),
+           torch.as_tensor(masks, device=device))
+    step = make_train_step(state.model, state.optimizer, state.scheduler,
+                           pipeline=dataset.device_pipeline)
+    gen = torch.Generator(device=device).manual_seed(0)
+    times = {"off": [], "on": []}
+    try:
+        with policy_scope("bf16"):
+            for _ in range(2):
+                for mode in ("off", "on"):
+                    torch.use_deterministic_algorithms(mode == "on")
+                    torch.backends.cudnn.deterministic = mode == "on"
+                    torch.backends.cudnn.benchmark = False
+                    step(*raw, gen)  # cuDNN picks its algorithms
+                    timed = timed_call(step, times[mode])
+                    for _ in range(DETERMINISM_STEPS):
+                        timed(*raw, gen)
+        for mode in ("off", "on"):
+            torch.use_deterministic_algorithms(mode == "on")
+            torch.backends.cudnn.deterministic = mode == "on"
+            with policy_scope("bf16"):
+                print_breakdown(f"deeplabv3 fused amp step, deterministic "
+                                f"{mode}", lambda: step(*raw, gen))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    medians = {mode: statistics.median(t) for mode, t in times.items()}
+    print("determinism cost (fused amp step): " + json.dumps(dict(
+        batch=[n, AUG_SIZE, AUG_SIZE, 3], step_ms=times,
+        median_ms=medians, on_over_off=medians["on"] / medians["off"])),
+        flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing measured")
@@ -2292,6 +2655,7 @@ def main():
     pipeline_phase(device)
     fused = deeplab_fused_phase(device)
     fused_amp = deeplab_fused_phase(device, amp=True)
+    cli, cli_instances = cli_phase(device)
     # the flagship's evaluation paths: validation in float32 and under amp
     # (on ready batches and through the val pipeline), TTA in float32
     eval_paths = (deeplab["validate"], deeplab["tta"],
@@ -2300,7 +2664,7 @@ def main():
     # every confusion instance of a main path was held against the plain
     # version in the kernel phase
     path_instances = {*instances, *setr_launches["confusion_instances"],
-                      *amp_launches["confusion_instances"],
+                      *amp_launches["confusion_instances"], *cli_instances,
                       *(k for path in eval_paths for k in path["instances"])}
     if not path_instances <= set(held_instances):
         raise AssertionError(f"confusion instances of a main path that the "
@@ -2310,6 +2674,8 @@ def main():
     setr_launches_k1 = dict(logits=setr_launches["confusion"], labels=0)
     amp_launches_k1 = dict(logits=amp_launches["confusion"], labels=0)
     flagship, setr_row = rows[0], flash_rows[0]
+    # K2's shapes on the ragged path: the smallest and largest Kvasir image
+    kvasir_rows = [r for r in rows if r["shape"][0] == 1]
     deeplab_resize = [r for r in resize_rows
                       if [r["shape"], r["size"]] in
                       [[list(a), list(b)] for a, b in
@@ -2376,10 +2742,12 @@ def main():
         "also_replaces": "image_segmentation_lab_tpu/ops/pallas/"
                          "confusion.py:98",
         # the DeepLabV3 and SETR serving slices, the flagship's validation
-        # (also through the val pipeline) and TTA
+        # (also through the val pipeline) and TTA, and the CLIs (K1) with
+        # the ragged evaluator path (K2)
         "launches": sum(path["logits"] + path["labels"] for path in
                         (launches, setr_launches_k1, amp_launches_k1,
-                         *eval_paths)),
+                         *eval_paths, cli)),
+        "cli_launches": {"logits": cli["logits"], "labels": cli["labels"]},
         "max_abs_err": max(max(r["max_abs_err"], r["labels_max_abs_err"])
                            for r in rows),
         "ms": flagship["ms"],
@@ -2401,6 +2769,11 @@ def main():
         "labels_bound_ms": flagship["labels_bound_ms"],
         "labels_library_ms": flagship["labels_library_ms"],
         "labels_library_device_ms": flagship["labels_library_device_ms"],
+        # K2 at the ragged path's shapes, one Kvasir image each
+        "labels_kvasir": [{k: r[k] for k in (
+            "shape", "labels_ms", "labels_device_ms", "labels_plain_ms",
+            "labels_bound_ms", "labels_library_ms",
+            "labels_library_device_ms")} for r in kvasir_rows],
     }, {
         "name": "flash_attention_forward",
         "route": "cuda",
@@ -2498,7 +2871,8 @@ def main():
         # and with the augmentation fused in
         "launches": sum(path["train"][k] for path in
                         (deeplab, deeplab_amp, fused, fused_amp)
-                        for k in RESIZE_KEY.values()),
+                        for k in RESIZE_KEY.values())
+                    + cli["resize_backward_bf16"],
         "max_abs_err": 0.0,
         "ms": pool_row["ms"],
         "device_ms": pool_row["device_ms"],

@@ -8,7 +8,8 @@ same relative path.  Conventions:
 * ``nn.Module``s whose submodule names follow the JAX parameter-tree paths,
   so ``bridge.py`` loads a JAX checkpoint with a generic walker;
 * explicit ``device`` arguments and ``torch.Generator``s for initialisation;
-* float32 compute (the bf16 policy is not ported yet);
+* float32 compute with TF32 off, or the bf16 policy of a schedule's
+  ``amp=True`` (``core/mixed_precision``);
 * every hand-written CUDA kernel sits beside its plain PyTorch version, which
   runs only for tensors that lie on the CPU.
 

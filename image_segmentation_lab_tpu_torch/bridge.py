@@ -1,4 +1,4 @@
-"""Weight bridge: a JAX-package state dict into a port module.
+"""Weight bridge: a JAX-package state dict into a port module, and back.
 
 The input is the flat ``{dotted.name: np.ndarray}`` dict that the JAX
 package's ``state_dict_from_variables`` writes and its pickle checkpoints
@@ -17,7 +17,9 @@ either way round):
 
 The load is strict: every JAX leaf must be used and every port parameter
 and buffer filled (``num_batches_tracked`` has no JAX counterpart and is
-left alone).
+left alone).  ``jax_state_dict`` is its inverse: the module's state as the
+JAX package's flat dict (float32 numpy on the host, JAX names and layouts,
+no ``num_batches_tracked``), which the JAX ``load_checkpoint`` reads.
 """
 
 from __future__ import annotations
@@ -37,16 +39,39 @@ def jax_name(torch_name: str) -> str:
     return _LIST_INDEX.sub(r"_\1", torch_name)
 
 
-def _layout_maps(model: nn.Module) -> Dict[str, Callable]:
-    """Port weight name -> JAX-to-port layout map, by module type."""
+# per module type: (JAX layout -> port layout, port layout -> JAX layout)
+_LAYOUTS = {
+    nn.Conv2d: (lambda a: a.transpose(3, 2, 0, 1),   # HWIO -> OIHW
+                lambda a: a.transpose(2, 3, 1, 0)),  # OIHW -> HWIO
+    nn.Linear: (np.transpose, np.transpose),
+}
+
+
+def layout_maps(model: nn.Module, to_jax: bool = False) -> Dict[str,
+                                                                 Callable]:
+    """Port weight name -> its layout map (JAX to port, or back), by the
+    type of the module that holds it."""
     maps = {}
     for name, module in model.named_modules():
-        prefix = f"{name}." if name else ""
-        if isinstance(module, nn.Conv2d):
-            maps[prefix + "weight"] = lambda a: a.transpose(3, 2, 0, 1)
-        elif isinstance(module, nn.Linear):
-            maps[prefix + "weight"] = np.transpose
+        for kind, pair in _LAYOUTS.items():
+            if isinstance(module, kind):
+                maps[f"{name}.weight" if name else "weight"] = pair[to_jax]
     return maps
+
+
+def jax_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
+    """``model``'s parameters and buffers as the JAX package's flat state
+    dict: ``{jax_name: float32 (or integer) numpy array}``."""
+    layout = layout_maps(model, to_jax=True)
+    out = {}
+    for name, tensor in model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        arr = tensor.detach().cpu().numpy()
+        if name in layout:
+            arr = layout[name](arr)
+        out[jax_name(name)] = np.ascontiguousarray(arr)
+    return out
 
 
 def load_jax_state_dict(model: nn.Module,
@@ -54,7 +79,7 @@ def load_jax_state_dict(model: nn.Module,
     """Copy a JAX-package state dict into ``model`` in place (strict)."""
     targets = {k: v for k, v in model.state_dict().items()
                if not k.endswith("num_batches_tracked")}
-    layout = _layout_maps(model)
+    layout = layout_maps(model)
     remaining = dict(state_dict)
     missing, mismatched = [], []
     with torch.no_grad():

@@ -30,7 +30,7 @@ def build_optimizer(cfg: Dict[str, Any], params, frozen_mask: Any = None):
     opt_type = cfg.pop("type")
     if cfg.pop("paramwise_cfg", None):
         raise NotImplementedError(
-            "paramwise_cfg is not ported yet (ROADMAP Queue 1 item 3; it "
+            "paramwise_cfg is not ported yet (ROADMAP Queue 1 item 5; it "
             "comes with BEiT/Swin)")
     if frozen_mask is not None:
         raise NotImplementedError(

@@ -1,16 +1,28 @@
-"""Image decoding and directory listing for the datasets (counterpart of
-``core/fileio/image_io.py`` and ``backend.py``).
+"""Image decoding and writing, and directory listing for the datasets
+(counterpart of ``core/fileio/image_io.py`` and ``backend.py``).
 
 ``imread`` decodes with OpenCV, or with Pillow where OpenCV is missing,
 each imported inside the call: importing the port loads neither (the GPU
 machine has neither).  Colour images come back BGR unless
 ``channel_order='rgb'``, as the JAX package's ``imread`` gives them.
+
+``imwrite`` writes PNG files with its own encoder (the standard library's
+``zlib``, ``struct`` and CRC32, no other writer): 8-bit RGB from a BGR
+``(H, W, 3)`` uint8 image, as ``cv2.imwrite`` takes it; 8-bit palette
+images (a ``PLTE`` chunk of 256 entries) from ``(H, W)`` uint8 indices and
+a ``palette``, as Pillow writes a mode ``"P"`` image; 8- and 16-bit gray
+from ``(H, W)`` uint8 or wider integers, where values outside [0, 65535]
+are clipped, as Pillow writes a mode ``"I"`` image (PNG has no 32-bit
+gray).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterator, Optional, Tuple, Union
+import struct
+import zlib
+from pathlib import Path
+from typing import Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -76,6 +88,62 @@ def resize_pair(image, mask, size_hw: Tuple[int, int], bilinear: bool,
                 (w, h), lib.BILINEAR if linear else lib.NEAREST))
     return one(image, bilinear), (None if mask is None
                                   else one(mask, mask_bilinear))
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray,
+               palette: Optional[Sequence[Sequence[int]]] = None) -> bytes:
+    """The PNG file of ``img`` (see the module docstring; a colour image is
+    taken as RGB here): every scanline with filter 0, one ``IDAT``."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 3 and palette is None:
+        pixels, depth, colour = img.astype(np.uint8), 8, 2
+    elif img.ndim == 2 and palette is not None:
+        if img.dtype != np.uint8:
+            raise TypeError(f"palette indices must be uint8, got {img.dtype}")
+        pixels, depth, colour = img, 8, 3
+    elif img.ndim == 2 and img.dtype in (np.uint8, np.bool_):
+        pixels, depth, colour = img.astype(np.uint8), 8, 0
+    elif img.ndim == 2 and np.issubdtype(img.dtype, np.integer):
+        pixels = np.clip(img, 0, 65535).astype(">u2")
+        depth, colour = 16, 0
+    else:
+        raise ValueError(f"cannot write a {img.dtype} image of shape "
+                         f"{img.shape} as PNG")
+    h, w = pixels.shape[:2]
+    rows = np.ascontiguousarray(pixels).reshape(h, -1).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    chunks = [_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                              colour, 0, 0, 0))]
+    if colour == 3:
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette)] = np.asarray(palette, np.uint8)
+        chunks.append(_png_chunk(b"PLTE", table.tobytes()))
+    chunks.append(_png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+    chunks.append(_png_chunk(b"IEND", b""))
+    return b"\x89PNG\r\n\x1a\n" + b"".join(chunks)
+
+
+def imwrite(img: np.ndarray, file_path, auto_mkdir: bool = True,
+            palette: Optional[Sequence[Sequence[int]]] = None) -> bool:
+    """Write ``img`` to ``file_path`` as PNG (the only format written): a
+    colour image is BGR, as ``cv2.imwrite`` takes it; ``palette`` makes a
+    ``(H, W)`` uint8 image a palette image."""
+    if Path(file_path).suffix.lower() != ".png":
+        raise ValueError(f"imwrite writes PNG only, not {file_path}")
+    img = np.asarray(img)
+    if img.ndim == 3 and palette is None:
+        img = img[..., ::-1]  # BGR -> RGB
+    data = encode_png(img, palette)
+    if auto_mkdir:
+        Path(file_path).parent.mkdir(parents=True, exist_ok=True)
+    with open(file_path, "wb") as f:
+        f.write(data)
+    return True
 
 
 class HardDiskBackend:

@@ -1,5 +1,5 @@
-"""Config parsing (counterpart of ``image_segmentation_lab_tpu/core/fileio/
-parse.py``).
+"""Config parsing and the CLIs' device flag (counterpart of
+``image_segmentation_lab_tpu/core/fileio/parse.py``).
 
 Config files are executable Python modules: the module is imported and every
 top-level name that is not a dunder, a module or a function becomes a config
@@ -15,6 +15,8 @@ import types
 import uuid
 from pathlib import Path
 from typing import Any, Dict, Optional
+
+import torch
 
 
 def load_python_config(filename) -> Dict[str, Any]:
@@ -69,3 +71,17 @@ def require_config_key(cfg: Dict[str, Any], key: str, path) -> Any:
             f"config {path} has no top-level `{key} = dict(...)` — is it "
             f"the right kind of config for this flag?")
     return cfg.pop(key)
+
+
+def select_device(device: str = "") -> torch.device:
+    """The torch device of a ``--device`` flag: ``'cpu'``, or a CUDA card
+    (``''``, ``'cuda'`` or ``'cuda:<i>'``), which must exist: with no card
+    the run stops here instead of going on on the CPU."""
+    device = str(device).strip().lower()
+    if device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit(f"--device '{device}' needs a CUDA device and none "
+                         f"is available; pass --device cpu to run on the "
+                         f"CPU")
+    return torch.device("cuda" if device in ("", "cuda", "gpu") else device)

@@ -10,6 +10,11 @@ with ``dtype=torch.bfloat16`` over the float32 parameters:
 ``inference``, ``predict``, ``inference_model`` and ``make_train_step``
 all run under it.  Norm statistics and the losses stay in float32, as in
 the JAX package.  ``bf16_full`` (bf16 parameters too) is not ported yet.
+
+``float32_precision()`` sets what float32 means on the card: IEEE float32
+products, with TF32 off for cuDNN convolutions and for cuBLAS matmuls
+(cuDNN's default is TF32, about three decimal digits).  Every float32 gate
+of the port was measured so; the CLIs and ``init_model`` call it.
 """
 
 from __future__ import annotations
@@ -75,6 +80,12 @@ def policy_scope(policy: Union[str, Policy]):
         yield _current_policy
     finally:
         _current_policy = prev
+
+
+def float32_precision() -> None:
+    """Float32 convolutions and matmuls in float32, not TF32."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def compute_autocast(device_type: str):

@@ -44,7 +44,7 @@ def adamw(params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
 def _not_ported(name):
     def factory(params, **kwargs):
         raise NotImplementedError(
-            f"optimizer {name} is not ported yet (ROADMAP Queue 1 item 3)")
+            f"optimizer {name} is not ported yet (ROADMAP Queue 1 item 5)")
     return factory
 
 

@@ -1,7 +1,7 @@
 """The port's registries, one instance each, created in one place.
 
 Only the registries the ported slices fill exist so far; the others
-(samplers, initializers, ...) arrive with the modules that fill them.
+(samplers, ...) arrive with the modules that fill them.
 """
 
 from ..registry import Register
@@ -18,7 +18,8 @@ LOSS = Register("loss")
 OPTIMIZER = Register("optimizer")
 LR_SCHEDULER = Register("lr_scheduler")
 DATASET = Register("dataset")
+INITIALIZERS = Register("initializers")
 
 __all__ = ["ACTIVATION", "CONVOLUTION", "DROPOUT", "NORMALIZATION",
            "BACKBONE", "NECK", "DECODEHEAD", "SEGMENTOR", "LOSS", "OPTIMIZER",
-           "LR_SCHEDULER", "DATASET"]
+           "LR_SCHEDULER", "DATASET", "INITIALIZERS"]

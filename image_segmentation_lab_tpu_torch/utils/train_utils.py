@@ -1,6 +1,6 @@
 """Epoch loops around the train and eval steps (counterpart of
-``utils/train_utils.py``): ``train_one_epoch``, ``validate_one_epoch`` and
-``pth_metadata``.
+``utils/train_utils.py``): ``train_one_epoch``, ``validate_one_epoch``,
+``pth_metadata`` and ``save_model``.
 
 A data loader is any iterable of ``(images, labels, infos)`` batches, as
 arrays or tensors; a batch already on the model's device is used where it
@@ -17,7 +17,6 @@ is.  Where the augmentation runs:
 Normalize), drawing from a generator seeded with ``epoch * 100003 +
 batch_idx``, as the JAX package's key.  The log values are summed on the
 device and read back once an epoch, so the host never waits on a step.
-Checkpoint writing (``save_model``) comes with the CLIs.
 """
 
 from __future__ import annotations
@@ -26,6 +25,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from ..core.initialize.checkpoint import pack_train_state, save_checkpoint
 
 
 def _to_device(images, labels, device):
@@ -127,3 +128,16 @@ def pth_metadata(metadata: Dict[str, Any],
             else:
                 meta[f"metric.{head}.{k}"] = np.asarray(v).tolist()
     return meta
+
+
+def save_model(state, metadata: Dict[str, Any], path,
+               include_train_state: bool = False,
+               backend: str = "pickle", ema_params=None) -> None:
+    """``{'metadata', 'state_dict'}`` checkpoint of ``state.model``, with
+    the resumable ``train_state`` (optimizer, scheduler, step, BN counters
+    and ``ema_params``, the EMA tensors where --ema-decay is on) when
+    ``include_train_state``."""
+    train_state = (pack_train_state(state, ema_params)
+                   if include_train_state else None)
+    save_checkpoint(state.model, path, metadata=metadata,
+                    train_state=train_state, backend=backend)

@@ -1,0 +1,324 @@
+"""The PyTorch port's train and val CLIs against the JAX package, on the CPU.
+
+``configs/network/fcn/fcn_r18_synthetic.py`` on a synthetic dataset of 16
+train and 8 val items at 160² (the synthetic YAMLs), the schedule's
+``deterministic=True``, SGD with StepLR, 2 steps an epoch.  Each CLI runs
+in this process through ``main(argv)`` with ``--device cpu``; the global
+state it sets (determinism, seeds, the compute policy) is restored after.
+
+- The whole slice: the train CLI (1 epoch) writes ``best.pth``; the JAX
+  package's ``load_checkpoint`` (strict), ``make_eval_step`` and
+  ``validate_one_epoch`` score it on the same val split, and so does the
+  port's val CLI: mIoU within 0.05 points, losses within 1e-4 relative,
+  and the JAX eval logits within rtol 1e-4 / atol 1e-5 of the port's.
+- Resume: ``--resume-from`` the 1-epoch run's ``last.pth`` to epoch 2 gives
+  the parameters of an uninterrupted 2-epoch run within 1e-6; a train
+  state that optax wrote raises ``SystemExit``; ``--auto-resume`` takes
+  the newest ``exp``/``exp<N>`` run, never a sibling ``exp_ablation``.
+- Both CLIs stop (``SystemExit``) with no GPU unless ``--device cpu``, and
+  on the flags that are not ported, naming their ROADMAP item.
+- ``inference_model`` on a PNG the port wrote, through the val YAML,
+  equals the JAX package's class map.
+"""
+
+import argparse
+import json
+import os
+import pickle
+import random
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import optax  # noqa: E402
+from torch_port_helpers import compile_quickly, init_jax  # noqa: E402
+
+from image_segmentation_lab_tpu import train_state as jtrain  # noqa: E402
+from image_segmentation_lab_tpu.core import DATASET as JDATASET  # noqa: E402
+from image_segmentation_lab_tpu.core import \
+    build_from_cfg as jbuild_from_cfg  # noqa: E402
+from image_segmentation_lab_tpu.core.dataset import \
+    DataLoader as JDataLoader  # noqa: E402
+from image_segmentation_lab_tpu.core.evaluation import \
+    SegEvaluator as JSegEvaluator  # noqa: E402
+from image_segmentation_lab_tpu.core.inference import \
+    infer as jinfer  # noqa: E402
+from image_segmentation_lab_tpu.core.initialize import \
+    checkpoint as jckpt  # noqa: E402
+from image_segmentation_lab_tpu.models.builder import \
+    build_segmentor as jax_build  # noqa: E402
+from image_segmentation_lab_tpu.utils import \
+    train_utils as jtrain_utils  # noqa: E402
+from image_segmentation_lab_tpu_torch import train, val  # noqa: E402
+from image_segmentation_lab_tpu_torch.core.fileio import (  # noqa: E402
+    imwrite, load_python_config)
+from image_segmentation_lab_tpu_torch.core.inference import (  # noqa: E402
+    inference_model, init_model)
+from image_segmentation_lab_tpu_torch.core.initialize import \
+    checkpoint  # noqa: E402
+from image_segmentation_lab_tpu_torch.core.mixed_precision import \
+    policy  # noqa: E402
+
+NETWORK = "configs/network/fcn/fcn_r18_synthetic.py"
+VAL_YAML = "configs/augmentation/synthetic_val_transform.yaml"
+DATASET = f"""
+dataset = dict(
+    train=dict(type='SyntheticDataset', length=16, image_size=(160, 160),
+               pipeline='configs/augmentation/synthetic_train_transform.yaml'),
+    val=dict(type='SyntheticDataset', length=8, image_size=(160, 160),
+             seed=1, return_ori_seg_gt=True, pipeline='{VAL_YAML}'))
+"""
+SCHEDULE = """
+seed = 0
+deterministic = True
+epochs = 2
+train_batch_size = 8
+val_batch_size = 4
+num_workers = 0
+optimizer = dict(type='SGD', lr=0.05, momentum=0.9, weight_decay=0.0005)
+lr_config = dict(type='StepLR', step_size=1, gamma=0.5)
+amp = False
+"""
+
+
+@pytest.fixture(scope="module")
+def restore_globals():
+    states = (random.getstate(), np.random.get_state(),
+              torch.get_rng_state(),
+              torch.are_deterministic_algorithms_enabled(),
+              torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark, policy.get_policy())
+    yield
+    random.setstate(states[0])
+    np.random.set_state(states[1])
+    torch.set_rng_state(states[2])
+    torch.use_deterministic_algorithms(states[3])
+    torch.backends.cudnn.deterministic = states[4]
+    torch.backends.cudnn.benchmark = states[5]
+    policy.set_policy(states[6])
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, restore_globals):
+    """The train CLI: 2 epochs (``full``), 1 epoch (``half``), and
+    ``half``'s ``last.pth`` resumed to epoch 2 (``resumed``)."""
+    root = tmp_path_factory.mktemp("cli")
+    (root / "dataset.py").write_text(DATASET)
+    (root / "schedule.py").write_text(SCHEDULE)
+    common = ["--network-cfg", NETWORK, "--dataset-cfg",
+              str(root / "dataset.py"), "--schedule-cfg",
+              str(root / "schedule.py"), "--work-dir", str(root / "runs"),
+              "--device", "cpu", "--ema-decay", "0.9"]
+    weights = {}
+    for name, extra in (("full", []), ("half", [
+            "--epochs", "1", "--profile-dir", str(root / "profile")])):
+        assert train.main(common + ["--name", name] + extra) == 0
+        weights[name] = root / "runs" / "train" / name / "weights"
+    resume = ["--resume-from", str(weights["half"] / "last.pth")]
+    assert train.main(common + ["--name", "resumed"] + resume) == 0
+    weights["resumed"] = root / "runs" / "train" / "resumed" / "weights"
+    return dict(root=root, common=common, weights=weights)
+
+
+def load(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def test_resume_continues_the_uninterrupted_run(runs):
+    """The parameters, the BN statistics and the EMA (--ema-decay 0.9)."""
+    full = load(runs["weights"]["full"] / "last.pth")
+    resumed = load(runs["weights"]["resumed"] / "last.pth")
+    assert full["metadata"]["epoch"] == resumed["metadata"]["epoch"] == 1
+    assert sorted(full["state_dict"]) == sorted(resumed["state_dict"])
+    for name, value in full["state_dict"].items():
+        np.testing.assert_allclose(resumed["state_dict"][name], value,
+                                   rtol=0, atol=1e-6, err_msg=name)
+    ema, ref = (c["train_state"]["ema_params"] for c in (resumed, full))
+    assert sorted(ema) == sorted(ref) and len(ref) > 20
+    for name, value in ref.items():
+        np.testing.assert_allclose(ema[name], value, rtol=0, atol=1e-6,
+                                   err_msg=name)
+    assert resumed["train_state"]["step"] == full["train_state"]["step"] == 4
+
+
+def test_best_holds_the_ema_and_the_profiler_wrote_a_trace(runs):
+    best = load(runs["weights"]["half"] / "best.pth")
+    last = load(runs["weights"]["half"] / "last.pth")
+    ema = last["train_state"]["ema_params"]
+    port, jax_key = ("backbone.layer1.blocks.0.conv1.weight",
+                     "backbone.layer1.blocks_0.conv1.weight")
+    np.testing.assert_array_equal(best["state_dict"][jax_key],
+                                  np.transpose(ema[port], (2, 3, 1, 0)))
+    assert not np.array_equal(best["state_dict"][jax_key],
+                              last["state_dict"][jax_key])
+    assert (runs["root"] / "profile" / "epoch_0.json").stat().st_size > 0
+
+
+def test_resume_from_an_optax_train_state_raises(runs, tmp_path):
+    ckpt = load(runs["weights"]["half"] / "last.pth")
+    params = {"w": jnp.zeros(3)}
+    ckpt["train_state"] = {"step": np.asarray(2), "opt_state": jax.device_get(
+        optax.sgd(0.05, momentum=0.9).init(params))}
+    path = tmp_path / "optax.pth"
+    with open(path, "wb") as f:
+        pickle.dump(ckpt, f)
+    with pytest.raises(SystemExit, match="--load-from"):
+        train.main(runs["common"] + ["--name", "optax", "--resume-from",
+                                     str(path)])
+
+
+def test_auto_resume_takes_the_newest_run_of_its_name(tmp_path):
+    base = tmp_path / "train"
+    for i, name in enumerate(("exp", "exp2", "exp_ablation", "exp3")):
+        weights = base / name / "weights"
+        weights.mkdir(parents=True)
+        if name != "exp3":  # the run being started
+            (weights / "last.pth").write_bytes(b"")
+            os.utime(weights / "last.pth", (i, i))
+            os.utime(base / name, (i, i))
+    args = argparse.Namespace(work_dir=tmp_path, project="train", name="exp")
+    last, best = train.find_auto_resume(args, base / "exp3")
+    assert last == base / "exp2" / "weights" / "last.pth"
+    assert best == base / "exp2" / "weights" / "best.pth"
+
+
+@pytest.fixture(scope="module")
+def jax_scored(runs):
+    """The JAX package's validation of the 1-epoch run's ``best.pth``."""
+    network = load_python_config(NETWORK)["model"]
+    jm = jax_build(network)
+    template = init_jax(jm, jnp.zeros((1, 160, 160, 3)),
+                        jnp.zeros((1, 160, 160), jnp.int32),
+                        return_loss=True, train=True)
+    variables, ckpt = jckpt.load_checkpoint(
+        template, runs["weights"]["half"] / "best.pth", strict=True,
+        logger=None)
+    state = jtrain.TrainState(step=jnp.zeros((), jnp.int32),
+                              params=variables["params"], frozen_params={},
+                              batch_stats=variables["batch_stats"],
+                              opt_state=None)
+    cfg = load_python_config(runs["root"] / "dataset.py")["dataset"]["val"]
+    dataset = jbuild_from_cfg(cfg, JDATASET)
+    loader = JDataLoader(dataset, batch_size=4, num_workers=0,
+                         collate_fn=dataset.collate_fn)
+    img, gt, _ = next(iter(loader))
+    img, gt = dataset.device_pipeline(jax.random.PRNGKey(0), img, gt)
+    step = compile_quickly(jtrain.make_eval_step(jm, dataset.ori_img_size),
+                           state, img, gt.astype(jnp.int32))
+    evaluator = JSegEvaluator(0, num_classes=2, class_names=dataset.CLASSES,
+                              palette=dataset.PALETTE, show_result=False)
+    losses, metrics = jtrain_utils.validate_one_epoch(
+        0, step, state, loader, evaluator,
+        pipeline=dataset.device_pipeline, log=False)
+    return dict(jm=jm, variables=variables, ckpt=ckpt, losses=losses,
+                metrics=metrics, step=step, state=state, batch=(img, gt))
+
+
+def test_whole_slice_scores_as_the_jax_package(runs, jax_scored):
+    ref_losses, ref_metrics = jax_scored["losses"], jax_scored["metrics"]
+    assert val.main(["--network-cfg", NETWORK, "--dataset-cfg",
+                     str(runs["root"] / "dataset.py"), "--checkpoint",
+                     str(runs["weights"]["half"] / "best.pth"),
+                     "--work-dir", str(runs["root"] / "runs"),
+                     "--device", "cpu", "--batch-size", "4",
+                     "--num-workers", "0", "--save-pred"]) == 0
+    run = runs["root"] / "runs" / "val" / "exp"
+    results = json.loads((run / "results.json").read_text())
+    assert sorted(results) == ["checkpoint", "losses", "metrics"]
+    assert len(list((run / "predictions").iterdir())) == 8
+    meta = jax_scored["ckpt"]["metadata"]
+    for head in ("decode", "aux"):
+        for source in (results["metrics"][head]["mIoU"],
+                       meta[f"metric.{head}.mIoU"]):
+            assert abs(source - float(ref_metrics[head]["mIoU"])) <= 0.05
+    for key, value in ref_losses.items():
+        np.testing.assert_allclose(results["losses"][key], value, rtol=1e-4,
+                                   err_msg=key)
+        np.testing.assert_allclose(meta[f"val.{key}"], value, rtol=1e-4,
+                                   err_msg=key)
+    # --tta (averaged probabilities, no losses) on the same split
+    assert val.main(["--network-cfg", NETWORK, "--dataset-cfg",
+                     str(runs["root"] / "dataset.py"), "--checkpoint",
+                     str(runs["weights"]["half"] / "best.pth"),
+                     "--work-dir", str(runs["root"] / "runs"),
+                     "--device", "cpu", "--num-workers", "0", "--tta",
+                     "--tta-scales", "0.75", "1.0"]) == 0
+    tta = json.loads((run.parent / "exp2" / "results.json").read_text())
+    assert tta["losses"] == {}
+    assert 0 <= tta["metrics"]["decode"]["mIoU"] <= 100
+    # the eval logits of the same checkpoint and batch
+    img, gt = jax_scored["batch"]
+    ref_logits, _ = jax_scored["step"](jax_scored["state"], img, gt)
+    model = init_model(NETWORK, runs["weights"]["half"] / "best.pth",
+                       device="cpu")
+    from image_segmentation_lab_tpu_torch.train_state import make_eval_step
+    logits, _ = make_eval_step(model, (160, 160))(
+        torch.from_numpy(np.transpose(np.asarray(img), (0, 3, 1, 2)).copy()),
+        torch.from_numpy(np.array(gt)))
+    for head, ref in ref_logits.items():
+        np.testing.assert_allclose(
+            np.transpose(logits[head].numpy(), (0, 2, 3, 1)),
+            np.asarray(ref), rtol=1e-4, atol=1e-5, err_msg=head)
+
+
+def test_inference_model_reads_a_png_through_the_val_yaml(runs, jax_scored,
+                                                          tmp_path):
+    rng = np.random.RandomState(0)
+    image = rng.randint(0, 256, (120, 200, 3)).astype(np.uint8)
+    image[30:90, 60:140] = (40, 200, 250)
+    path = tmp_path / "image.png"
+    imwrite(image, path)
+    model = init_model(NETWORK, runs["weights"]["half"] / "best.pth",
+                       device="cpu")
+    pred = inference_model(model, str(path), pipeline=VAL_YAML)
+    ref = jinfer.inference_model(jinfer.InferenceModel(
+        jax_scored["jm"], jax_scored["variables"], {}), str(path), VAL_YAML)
+    assert pred.shape == ref.shape == (120, 200)
+    assert (pred == np.asarray(ref)).mean() >= 0.999
+    both = inference_model(model, [str(path), str(path)], pipeline=VAL_YAML)
+    np.testing.assert_array_equal(both[1], pred)
+
+
+def test_clis_stop_without_a_gpu_and_on_unported_flags(tmp_path,
+                                                       monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    val_args = ["--network-cfg", NETWORK, "--dataset-cfg", "x",
+                "--checkpoint", "x", "--work-dir", str(tmp_path)]
+    for main, argv in ((train.main, ["--work-dir", str(tmp_path)]),
+                       (val.main, val_args)):
+        for device in ([], ["--device", "cuda"]):
+            with pytest.raises(SystemExit, match="--device cpu"):
+                main(argv + device)
+    for flag in (["--fsdp"], ["--zero1"], ["--tp-shards", "2"],
+                 ["--space-shards", "2"], ["--aug-shard-local"]):
+        with pytest.raises(SystemExit, match="Queue 1 item 8"):
+            train.main(flag)
+    with pytest.raises(SystemExit, match="orbax"):
+        train.main(["--ckpt-backend", "orbax_async"])
+    for flag in ("--panoptic", "--instances"):
+        with pytest.raises(SystemExit, match="Queue 1 item 7"):
+            val.main(val_args + [flag, "--device", "cpu"])
+    assert not list(tmp_path.iterdir())  # nothing written
+    with pytest.raises(NotImplementedError, match="orbax"):
+        checkpoint.save_checkpoint(torch.nn.Linear(1, 1), tmp_path / "x",
+                                   backend="orbax")
+
+
+def test_float32_precision_turns_tf32_off():
+    """What float32 means for the CLIs and ``init_model``: TF32 off for
+    cuDNN and cuBLAS, as every float32 gate was measured."""
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        policy.float32_precision()
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before

@@ -18,8 +18,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert len(names) > 20, names
-forbidden = ("jax", "flax", "optax", "image_segmentation_lab_tpu", "yaml",
-             "cv2", "PIL", "matplotlib", "triton")
+forbidden = ("jax", "flax", "optax", "orbax", "image_segmentation_lab_tpu",
+             "tools", "yaml", "cv2", "PIL", "matplotlib", "triton")
 loaded = sorted(m for m in forbidden if m in sys.modules)
 assert not loaded, loaded
 print("ok", len(names))

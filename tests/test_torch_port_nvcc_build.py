@@ -6,9 +6,16 @@ and every header beside it, which the bf16 kernels share
 writes the library file, and ``ctypes.CDLL`` by one that returns its path.
 """
 
+import fnmatch
+import re
+import tomllib
+from pathlib import Path
+
 import pytest
 
 from image_segmentation_lab_tpu_torch.ops import nvcc_build
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -66,3 +73,21 @@ def test_a_header_edit_rebuilds_with_the_header_directory_included(
     (csrc / "shared.cuh").write_text("// v2\n")
     second = nvcc_build.load_library("kernel.cu")
     assert len(builds) == 2 and second != first
+
+
+def test_package_data_ships_every_included_header():
+    """Every ``#include "..."`` of a ``csrc/`` source names a file that the
+    package data of ``pyproject.toml`` ships, so an installed port builds
+    its kernels as a source checkout does."""
+    with open(REPO / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "image_segmentation_lab_tpu_torch"]
+    csrc = REPO / "image_segmentation_lab_tpu_torch" / "csrc"
+    sources = sorted(csrc.glob("*.cu*"))
+    included = {name for src in sources for name in re.findall(
+        r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M)}
+    assert {"sm90_bf16x3.cuh", "sm90_wgmma.cuh"} <= included
+    for path in sources + [csrc / name for name in included]:
+        assert path.is_file(), path
+        rel = path.relative_to(csrc.parent).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
