@@ -30,10 +30,14 @@ printing its own lines; any failure raises and the exit code is not 0:
    (``*_clean_l2``);
 4. flash-attention forward kernels (on the tensor cores; bfloat16 as it
    is, float32 split into three bf16 parts by the split kernel): against
-   their plain version at SETR ViT-S/16's shape at 640² and at SegFormer-B0
-   stage 1's ``Lq != Lk`` shape (each in float32 and bfloat16) and at a
-   ragged small shape, with q, k and v strided views of a fused projection
-   as the models pass them; in float32 a second call must give the same
+   their plain version at SETR ViT-S/16's shape at 640², at SegFormer-B0
+   stage 1's ``Lq != Lk`` shape, at a ragged small shape and at the four
+   stages of each MiT path of phases 18 and 19 (MIT_CASES: MiT-B2 and
+   MiT-B0 at 16 x 640², MiT-B2 at 8 x 640², MiT-B0 at 8 x 512², in the
+   dtypes each runs, with each launch's CTA count), with q, k and v
+   strided views of a fused
+   projection as the models pass them (MiT: q alone and k, v views of the
+   fused kv, also at sr 1); in float32 a second call must give the same
    bits and the split of q, k and v its plain version's bits; beside it
    ``F.scaled_dot_product_attention`` as a yardstick (never on the path);
 5. DeepLabV3 slice: full-width DeepLabV3-R50-d8 through ``init_model`` and
@@ -58,7 +62,9 @@ printing its own lines; any failure raises and the exit code is not 0:
    kernel, which must give the same bits as its plain version): against
    their plain version at SETR ViT-S/16's training shape, the MiT-like
    ``Lq != Lk`` shape, a ragged small shape, Lk = 65 (63 masked keys in
-   the last tile) and a d = 48 shape, each in float32 and bfloat16, with
+   the last tile), a d = 48 shape and the four stages of MiT-B2 and
+   MiT-B0 at 16 x 640² (with each kernel's CTA count), each in float32
+   and bfloat16, with
    q, k, v and dO as the model passes them; a second call must give the
    same bits; beside them the backward of
    ``F.scaled_dot_product_attention`` in the same dtype as a yardstick
@@ -66,10 +72,12 @@ printing its own lines; any failure raises and the exit code is not 0:
    kernels' delta = rowsum(dO·O), plain torch);
 8b. resize backward kernel (the gradient of the bilinear resize, a gather
    with no atomics): against its plain version (the same bits) at SETR's
-   six upsamples in its train step and DeepLabV3's at 512² and 640² (the
-   8x logits and the 1 x 1 ASPP image pool, wide tables), in float32 and
-   bfloat16; the bf16
-   result must be the kernel's float32 result rounded once and a second
+   six upsamples in its train step, DeepLabV3's at 512² and 640² (the
+   8x logits and the 1 x 1 ASPP image pool, wide tables), SegFormer-B2's
+   at 16 x 640² (the head's 768 channels to 160², the logits to 640²) and
+   PSPNet's pyramid pooling (1 x 1 and 6 x 6 to 80²), in float32 and
+   bfloat16, and the rest of the pyramid heads' amp steps in bfloat16
+   (PYRAMID_RESIZE_SHAPES); the bf16 result must be the kernel's float32 result rounded once and a second
    call the same bits; beside it ``F.interpolate``'s own backward
    (``aten::upsample_bilinear2d_backward``) as a yardstick;
 9. SETR train slice: full-width SETR-PUP ViT-S/16 through ``init_model``,
@@ -170,7 +178,34 @@ printing its own lines; any failure raises and the exit code is not 0:
    on the CPU exactly, and each image's K2 counts equal to argmax +
    bincount; then the fused amp step with deterministic algorithms off and
    on (the schedule's ``deterministic=True``), with a breakdown of each.
-   The run directory is deleted after.
+   The run directory is deleted after;
+18. the SegFormer path at MiT-B2's full width (16 attention layers, head
+   dims 64): serving at 8 x 640² through ``init_model``,
+   ``inference_model`` and ``SegEvaluator`` in float32 (16 launches of the
+   float32 forward and of the split a forward) and under amp (16 of the
+   bf16 forward; logits against the same bf16 forward with plain
+   attention), one 320² window against the port on the CPU; the fused
+   train loop (phase 16's, through the Kvasir YAML from a 4-thread
+   ``DataLoader``) at the SegFormer schedule's 16 x 640² with its AdamW
+   and WarmScheduler from the seeded default init, in float32 and under
+   amp: 16 launches of each flash kernel a step (the split twice) and 4
+   of the resize backward, finite and falling losses, moved parameters,
+   validation through the val YAML (1 K1 launch a batch); one float32
+   step of SegFormer-B0 (d = 32) at 4 x 256² against float64 on the CPU
+   on the card's branches, as phase 10; the train CLI on the SegFormer
+   schedule as it is (amp, ``deterministic=True``, AdamW) for one epoch
+   of 3 steps on phase 17's Kvasir-shaped dataset, ``val.main --amp`` on
+   its ``best.pth`` (mIoU within 0.05 of the train run's), and the fused
+   amp step with deterministic algorithms off and on;
+19. the pyramid heads at full width: UPerNet on MiT-B0 (8 attention
+   layers), UPerNet on ResNetV1c-50 and PSPNet on ResNetV1c-50-d8, each
+   served at 8 x 512² (held
+   against the port on the CPU on a 320² window), validated over two
+   batches of 8 (2 K1 launches a batch), then two amp train steps at 16
+   x 640² (the first lets cuDNN choose) under
+   ``torch.use_deterministic_algorithms``: 12 (UPerNet) and 6 (PSPNet)
+   bf16 resize-backward launches a step, 8 of each bf16 flash kernel
+   (UPerNet), step ms and peak memory.
 
 Kernel times: the wrapper's median of 20 calls by CUDA events and the
 kernel's own device time from ``torch.profiler`` (for SDPA's forward, of
@@ -194,6 +229,7 @@ import functools
 import io
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -225,13 +261,13 @@ from image_segmentation_lab_tpu_torch.core.mixed_precision import (
     amp_policy, policy_scope)
 from image_segmentation_lab_tpu_torch.data import transforms as aug
 from image_segmentation_lab_tpu_torch.data.pipeline import Pipeline
-from image_segmentation_lab_tpu_torch.models.backbones import vit
+from image_segmentation_lab_tpu_torch.models.backbones import mit, vit
 from image_segmentation_lab_tpu_torch.models.basic import LayerNorm
 from image_segmentation_lab_tpu_torch.ops import (confusion, flash_attention,
                                                   resize_backward)
 from image_segmentation_lab_tpu_torch.train_state import (
-    binarize_channels, create_train_state, head_threshold, make_eval_step,
-    make_train_step, make_tta_step)
+    TrainState, binarize_channels, create_train_state, head_threshold,
+    make_eval_step, make_train_step, make_tta_step)
 from image_segmentation_lab_tpu_torch.utils import ops as resize_ops
 from image_segmentation_lab_tpu_torch.utils.train_utils import (
     train_one_epoch, validate_one_epoch)
@@ -378,6 +414,69 @@ KVASIR_SIZES = [(529, 622), (576, 720), (622, 529), (720, 576),
 # train steps a block when timing the fused amp step with deterministic
 # algorithms on and off
 DETERMINISM_STEPS = 3
+# phase 18, SegFormer: MiT-B2 (16 attention layers) serving at 8 x 640²,
+# training at the SegFormer schedule's 16 x 640²; the float64 agreement
+# step at MiT-B0 (8 layers) on 4 x 256²; each train step's bilinear
+# resizes under grad: SegFormerHead's three coarser scales to the 1/4 map
+# and the loss's resize of the logits
+SEGFORMER_CONFIG = ROOT / "configs/network/segformer/segformer_mit-b2.py"
+SEGFORMER_AGREE_CONFIG = ROOT / "configs/network/segformer/segformer_mit-b0.py"
+SEGFORMER_SCHEDULE = ROOT / "configs/schedule/segformer_schedule.py"
+SEGFORMER_BATCH, SEGFORMER_IMAGE_SIZE = 8, 640
+MIT_B2_LAYERS, MIT_B0_LAYERS = 16, 8
+SEGFORMER_AGREE_BATCH, SEGFORMER_AGREE_SIZE = 4, 256
+SEGFORMER_RESIZES = 4
+# MiT's attention per stage: (N, h, Lq, Lk, d) of the paths phases 18 and
+# 19 drive, in the dtypes each runs, with or without the backward:
+# SegFormer-B2's float32 and amp train steps and UPerNet-MiT-B0's amp steps
+# (and its float32 step beside them) at 16 x 640², SegFormer-B2's serving,
+# validation and val CLI at 8 x 640² (float32, amp), UPerNet-MiT-B0's
+# serving and validation at 8 x 512² (float32)
+MIT_CASES = [  # name, batch, image size, head dim, dtypes, backward
+    ("MiT-B2 train", 16, 640, 64, (torch.float32, torch.bfloat16), True),
+    ("MiT-B0 train", 16, 640, 32, (torch.float32, torch.bfloat16), True),
+    ("MiT-B2 serve", 8, 640, 64, (torch.float32, torch.bfloat16), False),
+    ("MiT-B0 serve", 8, 512, 32, (torch.float32,), False),
+]
+# rows of q (K3, K4) or of k (K5) a CTA of the flash kernels owns
+FLASH_ROWS_PER_CTA = 128
+# phase 19, the pyramid heads: serving at 8 x 512², two amp train steps at
+# 16 x 640² under deterministic algorithms; a step's bilinear resizes
+# under grad: UPerHead's four PPM upsamples, three top-down and three
+# fpn-output resizes and the decode and aux losses' two; PSPHead's four
+# PPM upsamples and the two losses'
+UPERNET_CONFIG = ROOT / "configs/network/upernet/upernet_mit-b0.py"
+UPERNET_R50_CONFIG = ROOT / "configs/network/upernet/upernet_r50.py"
+PSPNET_CONFIG = ROOT / "configs/network/pspnet/pspnet_r50-d8.py"
+PYRAMID_BATCH, PYRAMID_IMAGE_SIZE = 8, 512
+UPERNET_RESIZES, PSPNET_RESIZES = 12, 6
+# SegFormer-B2's resizes at 16 x 640² (the head's 768 channels to 160²,
+# the logits to 640²) and PSPNet's PPM at 16 x 640² (scales 1 and 6 to
+# the 80² map); (N, C, h, w) -> (H, W)
+SEGFORMER_RESIZE_SHAPES = [((16, 768, 80, 80), (160, 160)),
+                           ((16, 768, 40, 40), (160, 160)),
+                           ((16, 768, 20, 20), (160, 160)),
+                           ((16, 2, 160, 160), (640, 640))]
+PSPNET_RESIZE_SHAPES = [((16, 512, 1, 1), (80, 80)),
+                        ((16, 512, 6, 6), (80, 80))]
+
+
+def upernet_resizes(channels):
+    """UPerHead's resizes under grad at 16 x 640² on ``channels``: the PPM's
+    four upsamples to the 20² map, the three top-down steps and the three
+    fpn outputs to the 160² map."""
+    return ([((16, channels, s, s), (20, 20)) for s in (1, 2, 3, 6)]
+            + [((16, channels, s, s), (2 * s, 2 * s)) for s in (20, 40, 80)]
+            + [((16, channels, s, s), (160, 160)) for s in (80, 40, 20)])
+
+
+# the rest of the pyramid heads' amp steps (bf16 only): UPerNet's on MiT-B0
+# (256 channels) and on ResNet-50 (512), its aux loss's resize from 40²,
+# PSPNet's PPM at scales 2 and 3
+PYRAMID_RESIZE_SHAPES = [*upernet_resizes(256), *upernet_resizes(512),
+                         ((16, 2, 40, 40), (640, 640)),
+                         ((16, 512, 2, 2), (80, 80)),
+                         ((16, 512, 3, 3), (80, 80))]
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
@@ -412,6 +511,18 @@ def cuda_ms(fn, flush=None, warmup=3, runs=20):
     return statistics.median(times)
 
 
+def kernel_events(prof):
+    """A profile's device activities (kernels, copies, fills) without the
+    device ranges of ``record_function`` annotations (the augmentation's
+    and each transform's, the optimizer's step), which span kernels that
+    are counted on their own."""
+    ranges = set(aug.TRANSFORMS) | {"augmentation"}
+    return [evt for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False)
+            and evt.key not in ranges]
+
+
 def kernel_times(fn, flush=None, runs=1):
     """Device milliseconds per run of every CUDA kernel ``fn()`` launches,
     from ``torch.profiler`` (kernel name -> ms), the wall milliseconds per
@@ -429,27 +540,32 @@ def kernel_times(fn, flush=None, runs=1):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / runs
     times, counts = {}, {}
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            times[evt.key] = evt.self_device_time_total / 1e3 / runs
-            counts[evt.key] = evt.count
+    for evt in kernel_events(prof):
+        times[evt.key] = evt.self_device_time_total / 1e3 / runs
+        counts[evt.key] = evt.count
     return times, wall, counts
 
 
-def device_ms(fn, kernel, flush, runs=20, attempts=3):
+def device_ms(fn, kernel, flush, runs=20, attempts=5):
     """The device time of one call of ``fn``: of the kernel whose name
-    contains ``kernel`` or, with ``kernel=None``, of every kernel but the
-    flush's own, with ``flush()`` before each call.  A profile that holds
-    no device activity at all, or fewer launches of ``kernel`` than calls
-    (the profiler now and then drops a trace or part of one), is taken
-    again, up to ``attempts`` times."""
-    for _ in range(attempts):
+    contains ``kernel`` (launched once a call) or, with ``kernel=None``, of
+    every kernel but the flush's own, with ``flush()`` before each call.
+    A profile that holds no device activity at all, or fewer launches of
+    ``kernel`` than calls (the profiler now and then drops a trace or part
+    of one), is taken again, up to ``attempts`` times, and said so; where
+    launches are still missing, the kernel's time is the mean of the
+    launches it recorded."""
+    for attempt in range(attempts):
         times, _, counts = kernel_times(fn, flush, runs)
-        if times and (not kernel or sum(
-                n for name, n in counts.items() if kernel in name) >= runs):
+        launched = sum(n for name, n in counts.items()
+                       if kernel and kernel in name)
+        if times and (not kernel or launched >= runs):
             break
+        print(f"profile {attempt + 1} of {kernel}: {len(times)} kernels, "
+              f"{launched} of {runs} launches", flush=True)
     skip = flush_kernels(flush) if flush is not None else ()
-    hits = [ms for name, ms in times.items()
+    hits = [ms * runs / counts[name] if kernel else ms
+            for name, ms in times.items()
             if (kernel in name if kernel else name not in skip)]
     if not hits:
         raise AssertionError(f"the profiler saw no {kernel} kernel: "
@@ -489,8 +605,7 @@ def one_call_kernels(fn, attempts=3):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        kernels = {evt.key: evt.count for evt in prof.key_averages()
-                   if evt.device_type == torch.autograd.DeviceType.CUDA}
+        kernels = {evt.key: evt.count for evt in kernel_events(prof)}
         if kernels:
             break
     return kernels
@@ -621,18 +736,31 @@ def kernel_phase(device, l2_flush, l2_read):
     return rows, dict(confusion.instances)
 
 
-def projection_views(gen, device, dtype, n, h, lq, lk, d):
+def projection_views(gen, device, dtype, n, h, lq, lk, d, fused_kv):
     """q, k and v as the models pass them: strided (N, L, h, d) views of one
-    fused qkv projection (the ViT) when ``Lq == Lk``, else q alone and k, v
-    views of one fused kv projection (SegFormer's spatial-reduction
-    attention)."""
+    fused qkv projection (the ViT), or with ``fused_kv`` q alone and k, v
+    views of one fused kv projection (MiT's spatially reduced attention,
+    also at sr 1)."""
     def proj(length, parts):
         x = torch.randn((n, length, parts * h * d), generator=gen,
                         device=device).to(dtype)
         return [t.unflatten(-1, (h, d)) for t in x.split(h * d, dim=-1)]
-    if lq == lk:
+    if not fused_kv:
         return proj(lq, 3)
     return proj(lq, 1) + proj(lk, 2)
+
+
+def mit_rows(backward):
+    """The flash phases' MiT rows: ((N, h, Lq, Lk, d), dtype, name) for
+    each stage of each case of MIT_CASES (with a backward when
+    ``backward``); stage i runs on the map at stride 4 · 2^(i-1), its keys
+    on the map at stride 32 (sr ratios 8, 4, 2, 1), heads 1, 2, 5, 8."""
+    return [((n, h, (size // stride) ** 2, (size // 32) ** 2, d), dtype,
+             f"{case} stage {i + 1}")
+            for case, n, size, d, dtypes, bwd in MIT_CASES
+            if bwd or not backward
+            for i, (h, stride) in enumerate(zip((1, 2, 5, 8), (4, 8, 16, 32)))
+            for dtype in dtypes]
 
 
 def tensor_core_instructions(lib):
@@ -680,8 +808,11 @@ def resource_usage(lib):
 def flash_phase(device, l2_flush):
     gen = torch.Generator(device=device).manual_seed(1)
     rows = []
-    for (n, h, lq, lk, d), dtype in FLASH_SHAPES:
-        q, k, v = projection_views(gen, device, dtype, n, h, lq, lk, d)
+    for (n, h, lq, lk, d), dtype, mit in ([(*row, None)
+                                           for row in FLASH_SHAPES]
+                                          + mit_rows(backward=False)):
+        q, k, v = projection_views(gen, device, dtype, n, h, lq, lk, d,
+                                   lq != lk or mit is not None)
         scale = 1.0 / math.sqrt(d)
         args = (q, k, v, scale)
         o, lse = flash_attention.flash_attention_forward(*args)
@@ -734,7 +865,9 @@ def flash_phase(device, l2_flush):
                 qt, kt, vt, scale=scale), flush),
             sdpa_device_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=scale), None, flush),
-            bound_ms=bound, bound_by=bound_by)
+            bound_ms=bound, bound_by=bound_by,
+            ctas=math.ceil(lq / FLASH_ROWS_PER_CTA) * h * n,
+            mit=mit)
         if split:
             def split_call():
                 return flash_attention.split_bf16x3(q, k, v)
@@ -813,7 +946,8 @@ def randomize_(model, seed):
                 unit_gain(m.weight)
                 fill(m.bias, -0.1, 0.1)
         for head in (model.decode_head, model.auxiliary_head):
-            unit_gain(head.conv_seg.weight)
+            if head is not None:
+                unit_gain(head.conv_seg.weight)
 
 
 def timed_batches(fn, runs=5):
@@ -947,15 +1081,16 @@ def print_breakdown(what, fn):
         top_kernels=[[name[:90], ms] for name, ms in top])), flush=True)
 
 
-def serve_setr(model, amp):
-    """SETR serving under the float32 or (``amp``) the bf16 policy: 8
-    forwards through ``inference_model``, ``model.inference`` and
-    ``SegEvaluator``, with exactly 12 launches per forward of the policy's
-    flash forward kernel and none of the other one.  The batch, the
-    latency, the launches and the metrics."""
+def serve(model, amp, batch, size, layers, what):
+    """Serving under the float32 or (``amp``) the bf16 policy: 8 forwards
+    of ``batch`` synthetic ``size``² images through ``inference_model``,
+    ``model.inference`` and ``SegEvaluator``, with exactly ``layers``
+    launches per forward of the policy's flash forward kernel (and as many
+    splits in float32) and none of the other one.  The batch, the latency,
+    the launches, the peak memory and the metrics."""
     x, x_nchw, masks = synthetic_batch(next(model.parameters()).device,
-                                       SETR_BATCH, SETR_IMAGE_SIZE)
-    shape = (SETR_BATCH, SETR_IMAGE_SIZE, SETR_IMAGE_SIZE)
+                                       batch, size)
+    shape = (batch, size, size)
     dtype = torch.bfloat16 if amp else torch.float32
     forwards = 0
 
@@ -966,13 +1101,15 @@ def serve_setr(model, amp):
 
     reset_counts()
     evaluator = new_evaluator()
+    device = next(model.parameters()).device
+    torch.cuda.reset_peak_memory_stats(device)
     with torch.no_grad(), policy_scope("bf16" if amp else "fp32"):
-        check_class_map(serve(), shape, f"setr whole, {dtype}")
+        check_class_map(serve(), shape, f"{what} whole, {dtype}")
         latency = timed_batches(serve)
         forwards += 1
         probs = model.inference(x_nchw)
         if probs.dtype != dtype or not bool(torch.isfinite(probs).all()):
-            raise AssertionError(f"setr: {probs.dtype} output, or not "
+            raise AssertionError(f"{what}: {probs.dtype} output, or not "
                                  f"finite")
         evaluator.process(0, {"whole": probs}, {"ori_gt": masks})
     torch.cuda.synchronize()
@@ -985,15 +1122,17 @@ def serve_setr(model, amp):
                     confusion_instances=dict(confusion.instances))
     metrics = evaluator.compute_metrics()
     check_metrics(metrics)
-    if (flash != SETR_LAYERS * forwards or other != 0
+    if (flash != layers * forwards or other != 0
             or splits != (0 if amp else flash)):
-        raise AssertionError(f"{flash} flash launches ({other} of the other "
-                             f"forward kernel, {splits} splits) for "
-                             f"{forwards} forwards of {SETR_LAYERS} layers, "
+        raise AssertionError(f"{what}: {flash} flash launches ({other} of "
+                             f"the other forward kernel, {splits} splits) "
+                             f"for {forwards} forwards of {layers} layers, "
                              f"{dtype}")
     if launches["confusion"] == 0:
         raise AssertionError("the evaluator never launched the kernel")
     return x_nchw, dict(batch=list(x_nchw.shape), ms_per_batch=latency,
+                        peak_memory_gb=torch.cuda.max_memory_allocated(
+                            device) / 1e9,
                         forwards=forwards, launches=launches,
                         metrics=summarize(metrics))
 
@@ -1005,39 +1144,40 @@ def setr_slice_phase(device):
     if model.backbone.depth != SETR_LAYERS:
         raise AssertionError(f"ViT-S has {model.backbone.depth} layers")
     randomize_(model, seed=0)
-    x_nchw, row = serve_setr(model, amp=False)
+    x_nchw, row = serve(model, False, SETR_BATCH, SETR_IMAGE_SIZE,
+                        SETR_LAYERS, "setr")
     print("setr slice: " + json.dumps(row), flush=True)
     print_breakdown("setr", lambda: model.inference(x_nchw))
     return model, x_nchw, row["launches"]
 
 
-def setr_amp_slice_phase(model):
-    """SETR serving under the schedule's bf16 policy (``serve_setr``),
-    then its logits against the same bf16 forward with plain attention on
-    the card, and the share of pixels whose class matches the float32
-    forward."""
-    x_nchw, row = serve_setr(model, amp=True)
-    plain = functools.partial(vit.multihead_attention, force="plain")
+def amp_slice_phase(model, backbone, batch, size, layers, what):
+    """Serving under the schedule's bf16 policy (``serve``), then the
+    logits against the same bf16 forward with plain attention on the card
+    (``backbone``'s ``multihead_attention`` forced plain), and the share
+    of pixels whose class matches the float32 forward."""
+    x_nchw, row = serve(model, True, batch, size, layers, what)
+    plain = functools.partial(backbone.multihead_attention, force="plain")
     with torch.no_grad():
         fp32 = model.encode_decode(x_nchw).float()
         with policy_scope("bf16"):
             amp = model.encode_decode(x_nchw).float()
-            with mock.patch.object(vit, "multihead_attention", plain):
+            with mock.patch.object(backbone, "multihead_attention", plain):
                 ref = model.encode_decode(x_nchw).float()
     scale = float(ref.abs().max())
     err = float((amp - ref).abs().max())
     agree = float((amp.argmax(1) == ref.argmax(1)).float().mean())
     if err > AMP_LOGIT_SHARE * scale or agree < AMP_ARGMAX_AGREE:
-        raise AssertionError(f"amp logits vs plain attention: max abs error "
-                             f"{err} of max |logit| {scale}, argmax agreement "
-                             f"{agree}")
+        raise AssertionError(f"{what} amp logits vs plain attention: max abs "
+                             f"error {err} of max |logit| {scale}, argmax "
+                             f"agreement {agree}")
     row.update(vs_plain_attention=dict(max_abs_err=err, max_abs_logit=scale,
                                        argmax_agreement=agree),
                argmax_agreement_with_float32=float(
                    (amp.argmax(1) == fp32.argmax(1)).float().mean()))
-    print("setr amp slice: " + json.dumps(row), flush=True)
+    print(f"{what} amp slice: " + json.dumps(row), flush=True)
     with policy_scope("bf16"):
-        print_breakdown("setr amp", lambda: model.inference(x_nchw))
+        print_breakdown(f"{what} amp", lambda: model.inference(x_nchw))
     return row["launches"]
 
 
@@ -1069,8 +1209,11 @@ def flash_backward_phase(device, l2_flush):
     together) and ``backward_delta``."""
     gen = torch.Generator(device=device).manual_seed(2)
     rows = []
-    for (n, h, lq, lk, d), dtype in FLASH_BWD_SHAPES:
-        q, k, v = projection_views(gen, device, dtype, n, h, lq, lk, d)
+    for (n, h, lq, lk, d), dtype, mit in ([(*row, None)
+                                           for row in FLASH_BWD_SHAPES]
+                                          + mit_rows(backward=True)):
+        q, k, v = projection_views(gen, device, dtype, n, h, lq, lk, d,
+                                   lq != lk or mit is not None)
         do = torch.randn((n, lq, h, d), generator=gen, device=device).to(
             dtype)
         scale = 1.0 / math.sqrt(d)
@@ -1165,7 +1308,10 @@ def flash_backward_phase(device, l2_flush):
                 lambda: flash_attention.attention_backward_plain(*args),
                 flush),
             sdpa_backward_ms=cuda_ms(sdpa_backward, flush),
-            sdpa_backward_device_ms=device_ms(sdpa_backward, None, flush))
+            sdpa_backward_device_ms=device_ms(sdpa_backward, None, flush),
+            dq_ctas=math.ceil(lq / FLASH_ROWS_PER_CTA) * h * n,
+            dkv_ctas=math.ceil(lk / FLASH_ROWS_PER_CTA) * h * n,
+            mit=mit)
         if split:
             def split_call():
                 return flash_attention.split_bf16x3(q, k, v, do)
@@ -1201,15 +1347,18 @@ def flash_backward_phase(device, l2_flush):
 def resize_backward_phase(device, l2_flush):
     """The resize backward kernel against its plain version (the same
     bits), its own float32 result rounded once (bf16) and its second call
-    (the same bits), at each shape of SETR's and DeepLabV3's train steps in
-    both dtypes; times of the kernel, the plain version and
-    ``F.interpolate``'s own backward."""
+    (the same bits), at each shape of SETR's, DeepLabV3's and SegFormer's
+    train steps in both dtypes and of the pyramid heads' amp steps in bf16;
+    times of the kernel, the plain version and ``F.interpolate``'s own
+    backward."""
     gen = torch.Generator(device=device).manual_seed(3)
     rows = []
-    for (n, c, h, w), size in dict.fromkeys((*SETR_RESIZES,
-                                             *DEEPLAB_RESIZES,
-                                             *DEEPLAB_RESIZES_640)):
-        for dtype in (torch.float32, torch.bfloat16):
+    both = dict.fromkeys((*SETR_RESIZES, *DEEPLAB_RESIZES,
+                          *DEEPLAB_RESIZES_640, *SEGFORMER_RESIZE_SHAPES,
+                          *PSPNET_RESIZE_SHAPES))
+    for (n, c, h, w), size in (*both, *dict.fromkeys(PYRAMID_RESIZE_SHAPES)):
+        for dtype in ((torch.float32, torch.bfloat16)
+                      if ((n, c, h, w), size) in both else (torch.bfloat16,)):
             gy = torch.randn((n, c, *size), generator=gen,
                              device=device).to(dtype)
 
@@ -1288,19 +1437,22 @@ def step_counts(amp=False):
     return dict(flash_counts(amp), **resize_backward.launches)
 
 
-def per_step_launches(key, amp=False):
-    """A SETR train step's launches of a flash kernel, the split or the
-    resize backward: each flash kernel once a layer, the split twice (q, k,
-    v for the forward; q, k, v, dO for the backward), the resize backward
-    of the policy's dtype once per bilinear resize and of the other none."""
+def per_step_launches(key, amp=False, layers=SETR_LAYERS,
+                      resizes=len(SETR_RESIZES)):
+    """A train step's launches of a flash kernel, the split or the resize
+    backward (SETR's by default): each flash kernel once an attention
+    layer, the split twice (q, k, v for the forward; q, k, v, dO for the
+    backward), the resize backward of the policy's dtype once per bilinear
+    resize and of the other none."""
     if key in RESIZE_KEY.values():
-        return len(SETR_RESIZES) if key == RESIZE_KEY[amp] else 0
-    return 2 * SETR_LAYERS if key == "split_bf16x3" else SETR_LAYERS
+        return resizes if key == RESIZE_KEY[amp] else 0
+    return 2 * layers if key == "split_bf16x3" else layers
 
 
-def schedule_cfg():
-    """The kvasir schedule's optimizer, LR schedule and ``amp`` flag."""
-    schedule = load_python_config(SCHEDULE)
+def schedule_cfg(path=SCHEDULE):
+    """A schedule's (the kvasir one's by default) optimizer, LR schedule
+    and ``amp`` flag."""
+    schedule = load_python_config(path)
     return schedule["optimizer"], schedule["lr_config"], schedule["amp"]
 
 
@@ -1423,17 +1575,22 @@ def amp_attention_agreement(model, x, gt, device):
     return dict(tensors=len(shares), worst_relative_distance=worst)
 
 
-def agreement_inputs():
-    """The full-size SETR config without drop path on the CPU, from seeded
-    weights, and a batch of AGREE_BATCH synthetic images."""
-    network = load_python_config(SETR_CONFIG)["model"]
-    network["backbone"]["drop_path_rate"] = 0.0
+def agreement_inputs(config, batch, size):
+    """A full-size config without drop path and head dropout (the two
+    devices' generators draw other masks) on the CPU, from seeded weights,
+    and a batch of ``batch`` synthetic ``size``² images and their labels."""
+    network = load_python_config(config)["model"]
+    if "drop_path_rate" in network["backbone"]:
+        network["backbone"]["drop_path_rate"] = 0.0
+    for head in ("decode_head", "auxiliary_head"):
+        if network.get(head):
+            network[head]["dropout_ratio"] = 0.0
     with tempfile.TemporaryDirectory() as tmp:
-        config = Path(tmp) / "setr_pup_vit-s_no_drop_path.py"
-        config.write_text(f"model = {network!r}\n")
-        model = init_model(config, device="cpu")
+        path = Path(tmp) / f"{Path(config).stem}_no_dropout.py"
+        path.write_text(f"model = {network!r}\n")
+        model = init_model(path, device="cpu")
     randomize_(model, seed=1)
-    _, x, masks = synthetic_batch("cpu", AGREE_BATCH, AGREE_IMAGE_SIZE)
+    _, x, masks = synthetic_batch("cpu", batch, size)
     return model, x, torch.from_numpy(masks).long()
 
 
@@ -1465,7 +1622,8 @@ def setr_train_agreement_phase(device):
     float32) and on the CPU in float64 (the plain versions; attention and
     LayerNorm without the float32 casts the port shares with the JAX
     package, the losses with theirs)."""
-    model, x, gt = agreement_inputs()
+    model, x, gt = agreement_inputs(SETR_CONFIG, AGREE_BATCH,
+                                    AGREE_IMAGE_SIZE)
     patches = (mock.patch.object(vit, "multihead_attention",
                                  attention_in_input_dtype),
                mock.patch.object(LayerNorm, "forward",
@@ -1705,7 +1863,7 @@ def deeplab_train_phase(device, amp=False):
                         lambda: train_step(x, gt, generator))
     n = flagship_schedule()["val_batch_size"]
     paths = {"train": launches,
-             "validate": deeplab_validate(
+             "validate": validate_batches(
                  state, [(x[i:i + n], gt[i:i + n], {}) for i in (0, n)],
                  policy)}
     if not amp:
@@ -1713,14 +1871,16 @@ def deeplab_train_phase(device, amp=False):
     return paths
 
 
-def deeplab_validate(state, loader, policy, pipeline=None,
+def validate_batches(state, loader, policy, pipeline=None,
                      what="deeplabv3 validate"):
     """``validate_one_epoch`` through ``make_eval_step`` over ``loader``
     (two batches of the schedule's ``val_batch_size``; raw, through
-    ``pipeline``, where given) under ``policy``: exactly 2 K1 launches a
-    batch (decode and aux heads) and no K2, and the evaluator's counts
-    equal to ``torch.argmax`` + ``torch.bincount`` on the same logits.
-    Timed over a second pass.  The confusion launches and instances."""
+    ``pipeline``, where given) under ``policy``: exactly one K1 launch a
+    batch and head (decode, and aux where the model has one) and no K2,
+    and the evaluator's counts equal to ``torch.argmax`` +
+    ``torch.bincount`` on the same logits.  Timed over a second pass.  The
+    confusion launches and instances."""
+    heads = 1 if state.model.auxiliary_head is None else 2
     eval_step = make_eval_step(state.model)
     seen = []
 
@@ -1736,9 +1896,11 @@ def deeplab_validate(state, loader, policy, pipeline=None,
                                               evaluator, pipeline=pipeline)
     torch.cuda.synchronize()
     launches = dict(confusion.launches, instances=dict(confusion.instances))
-    if launches["logits"] != 2 * len(loader) or launches["labels"] != 0:
-        raise AssertionError(f"validation over {len(loader)} batches "
-                             f"launched {launches}")
+    if (launches["logits"] != heads * len(loader)
+            or launches["labels"] != 0):
+        raise AssertionError(f"{what}: validation over {len(loader)} "
+                             f"batches of {heads} heads launched "
+                             f"{launches}")
     check_metrics(metrics)
     for head, sums in evaluator.results.items():
         counts = [torch.zeros(2, dtype=torch.float64) for _ in range(3)]
@@ -1874,20 +2036,12 @@ def deeplab_train_agreement_phase(device):
     the ASPP's dilation-12 and -24 taps), on the card (the resize kernel,
     float32) against the same step in float64 on the CPU (its plain
     version)."""
-    network = load_python_config(CONFIG)["model"]
-    for head in ("decode_head", "auxiliary_head"):
-        network[head]["dropout_ratio"] = 0.0
-    with tempfile.TemporaryDirectory() as tmp:
-        config = Path(tmp) / "deeplabv3_r50-d8_no_dropout.py"
-        config.write_text(f"model = {network!r}\n")
-        model = init_model(config, device="cpu")
-    randomize_(model, seed=1)
-    _, x, masks = synthetic_batch("cpu", DEEPLAB_AGREE_BATCH,
-                                  DEEPLAB_AGREE_SIZE)
+    model, x, gt = agreement_inputs(CONFIG, DEEPLAB_AGREE_BATCH,
+                                    DEEPLAB_AGREE_SIZE)
     expected = {k: 0 for k in step_counts()}
     expected[RESIZE_KEY[False]] = len(DEEPLAB_RESIZES)
-    train_agreement(device, "deeplabv3 train step", model, x,
-                    torch.from_numpy(masks).long(), (), expected)
+    train_agreement(device, "deeplabv3 train step", model, x, gt, (),
+                    expected)
 
 
 def half_integer_pixels(shape, angle_deg):
@@ -1972,14 +2126,13 @@ def transform_split(fn, runs=3):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / runs
-    split, kernels = {}, 0.0
     names = set(aug.TRANSFORMS) | {"augmentation"}
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            if evt.key not in names:
-                kernels += evt.self_device_time_total / 1e3 / runs
-        elif evt.key in names:
-            split[evt.key] = evt.device_time_total / 1e3 / runs
+    kernels = sum(evt.self_device_time_total for evt in kernel_events(prof)
+                  ) / 1e3 / runs
+    split = {evt.key: evt.device_time_total / 1e3 / runs
+             for evt in prof.key_averages()
+             if evt.device_type != torch.autograd.DeviceType.CUDA
+             and evt.key in names}
     return dict(sorted(split.items(), key=lambda kv: -kv[1])), kernels, wall
 
 
@@ -2139,22 +2292,30 @@ def pipeline_phase(device):
         flush=True)
 
 
-def deeplab_fused_phase(device, amp=False):
-    """Phase 16: the flagship's loop with the augmentation fused into the
-    step: TRAIN_STEPS steps of ``train_one_epoch(..., fused_aug=True)``
-    over a ``DataLoader`` (LOADER_WORKERS threads) of ``SyntheticDataset``
-    AUG_SIZE² items through the Kvasir train YAML at the schedule's train
-    batch, float32 or under the bf16 policy with ``amp``; then
-    ``validate_one_epoch`` through the val YAML's ``device_pipeline`` over
-    two val batches.  Exactly 3 resize-backward launches a step in the
-    policy's dtype, finite and falling losses, moved parameters.  The
-    launches of each path."""
+def fused_train_phase(device, amp=False, config=CONFIG,
+                      schedule_path=SCHEDULE, layers=0,
+                      resizes=len(DEEPLAB_RESIZES_640), what="deeplabv3",
+                      randomize=True):
+    """Phases 16 (the flagship) and 18 (SegFormer): a model's loop with
+    the augmentation fused into the step: TRAIN_STEPS steps of
+    ``train_one_epoch(..., fused_aug=True)`` over a ``DataLoader``
+    (LOADER_WORKERS threads) of ``SyntheticDataset`` AUG_SIZE² items
+    through the Kvasir train YAML at the schedule's train batch, with the
+    schedule's optimizer and LR schedule, float32 or under the bf16 policy
+    with ``amp``; then ``validate_one_epoch`` through the val YAML's
+    ``device_pipeline`` over two val batches.  Weights from ``randomize_``,
+    or without ``randomize`` the seeded default init.  Each step launches
+    each flash kernel of the policy's dtype once an attention layer
+    (``layers``, the split twice in float32) and the resize backward
+    ``resizes`` times, and no kernel of the other dtype; finite and
+    falling losses, moved parameters.  The launches of each path."""
     policy = "bf16" if amp else "fp32"
-    schedule = flagship_schedule()
+    schedule = load_python_config(schedule_path)
     n = schedule["train_batch_size"]
-    model = init_model(CONFIG, device=device)
-    randomize_(model, seed=0)
-    optimizer_cfg, lr_config, _ = schedule_cfg()
+    model = init_model(config, device=device)
+    if randomize:
+        randomize_(model, seed=0)
+    optimizer_cfg, lr_config, _ = schedule_cfg(schedule_path)
     state = create_train_state(model, optimizer_cfg, lr_config)
     train_ds = SyntheticDataset(pipeline=str(TRAIN_TRANSFORM),
                                 length=n * TRAIN_STEPS,
@@ -2201,26 +2362,30 @@ def deeplab_fused_phase(device, amp=False):
         # second epoch of three batches
         loader.set_epoch(1)
         short = [b for b, _ in zip(loader, range(3))]
-        split, kernels_ms, wall = transform_split(
-            lambda: train_one_epoch(1, train_step, state, iter(short),
-                                    generator=generator, fused_aug=True),
-            runs=1)
+        with policy_scope(policy):
+            split, kernels_ms, wall = transform_split(
+                lambda: train_one_epoch(1, train_step, state, iter(short),
+                                        generator=generator,
+                                        fused_aug=True), runs=1)
         raw = [torch.as_tensor(t, device=device) for t in short[0][:2]]
         with policy_scope(policy):
-            print_breakdown(f"deeplabv3 fused train step ({policy})",
+            print_breakdown(f"{what} fused train step ({policy})",
                             lambda: train_step(*raw, generator))
     finally:
         loader.close()
-    expected = {k: 0 for k in launches}
-    expected[RESIZE_KEY[amp]] = len(DEEPLAB_RESIZES_640)
+    expected = {k: per_step_launches(k, amp, layers, resizes)
+                for k in launches}
     for i, (log, counts) in enumerate(zip(logs, per_step)):
         if counts != expected:
-            raise AssertionError(f"fused step {i + 1} launched {counts}, "
-                                 f"not {expected}")
+            raise AssertionError(f"{what} fused step {i + 1} launched "
+                                 f"{counts}, not {expected}")
         if not all(math.isfinite(v) for v in log.values()):
-            raise AssertionError(f"fused step {i + 1}: non-finite {log}")
-    if any(flash_attention.launches.values()):
-        raise AssertionError("the flagship launched flash kernels")
+            raise AssertionError(f"{what} fused step {i + 1}: non-finite "
+                                 f"{log}")
+    other = {k: flash_attention.launches[k] for k in FLASH_KEYS[not amp]}
+    if any(other.values()):
+        raise AssertionError(f"{what} {policy} steps launched the other "
+                             f"dtype's flash kernels: {other}")
     if len(logs) != TRAIN_STEPS or any(c[0] != torch.uint8 for c in copied):
         raise AssertionError(f"{len(logs)} steps, batches {copied[:1]}")
     losses = [log["loss"] for log in logs]
@@ -2233,10 +2398,10 @@ def deeplab_fused_phase(device, amp=False):
              if not name.endswith("num_batches_tracked")
              and torch.equal(t, after[name])]
     if still:
-        raise AssertionError(f"unchanged after {TRAIN_STEPS} fused steps: "
-                             f"{still}")
+        raise AssertionError(f"{what}: unchanged after {TRAIN_STEPS} fused "
+                             f"steps: {still}")
     aug_ms = split.pop("augmentation", 0.0) / len(short)
-    print(f"deeplabv3 fused train ({policy}): " + json.dumps(dict(
+    print(f"{what} fused train ({policy}): " + json.dumps(dict(
         batch=[n, AUG_SIZE, AUG_SIZE, 3], steps=TRAIN_STEPS, loss=losses,
         epoch_mean=mean_log, ms_per_step=statistics.median(step_ms[1:]),
         step_ms=step_ms, epoch_ms=epoch_ms,
@@ -2250,8 +2415,7 @@ def deeplab_fused_phase(device, amp=False):
                             busy_share=kernels_ms / wall,
                             augmentation_device_ms_by_transform={
                                 k: v / len(short) for k, v in split.items()}),
-        launches=launches, resize_backward_per_step=per_step[0])),
-        flush=True)
+        launches=launches, per_step=per_step[0])), flush=True)
     n_val = schedule["val_batch_size"]
     val_ds = SyntheticDataset(pipeline=str(VAL_TRANSFORM), length=2 * n_val,
                               image_size=(AUG_SIZE, AUG_SIZE), seed=1)
@@ -2259,9 +2423,9 @@ def deeplab_fused_phase(device, amp=False):
                             num_workers=LOADER_WORKERS,
                             collate_fn=val_ds.collate_fn)
     try:
-        validate = deeplab_validate(state, val_loader, policy,
+        validate = validate_batches(state, val_loader, policy,
                                     pipeline=val_ds.device_pipeline,
-                                    what="deeplabv3 fused validate")
+                                    what=f"{what} fused validate")
     finally:
         val_loader.close()
     return {"train": launches, "validate": validate}
@@ -2324,7 +2488,9 @@ def cli_phase(device):
         common = ["--network-cfg", str(CONFIG), "--dataset-cfg",
                   str(dataset_cfg), "--work-dir", str(work), "--device",
                   str(device)]
-        launches, best = cli_train(common, work)
+        launches, best = cli_train(common, work, dict(
+            logits=2 * CLI_VAL_BATCHES, labels=0,
+            resize_backward_bf16=3 * CLI_TRAIN_STEPS))
         val_launches = cli_validate(common, work, best, n_val)
         ragged = ragged_phase(device, best)
     finally:
@@ -2344,11 +2510,14 @@ def cli_phase(device):
     return path, instances
 
 
-def cli_train(common, work):
-    """The train CLI for one epoch of CLI_TRAIN_STEPS steps under
-    ``torch.profiler``: step and epoch times, checkpoint sizes and write
-    times, validation ms a batch, launches; ``last.pth`` and ``best.pth``
-    load back strictly into fresh port models."""
+def cli_train(common, work, expected, config=CONFIG, schedule=SCHEDULE,
+              what="cli"):
+    """The train CLI on ``config`` with ``schedule`` for one epoch of
+    CLI_TRAIN_STEPS steps under ``torch.profiler``: step and epoch times,
+    checkpoint sizes and write times, validation ms a batch, launches
+    (``expected``: the confusion entries and the amp step's kernels, any
+    other amp-step kernel 0); ``last.pth`` and ``best.pth`` load back
+    strictly into fresh port models."""
     from torch.profiler import ProfilerActivity, profile
     times = dict(step=[], epoch=[], val=[], save=[])
     saved = []
@@ -2372,7 +2541,7 @@ def cli_train(common, work):
                                 ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         quiet_run(train_cli.main, common + [
-            "--schedule-cfg", str(SCHEDULE), "--epochs", "1"])
+            "--schedule-cfg", str(schedule), "--epochs", "1"])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # the schedule's deterministic algorithms hold for the train CLI's
@@ -2381,28 +2550,26 @@ def cli_train(common, work):
     torch.backends.cudnn.deterministic = False
     launches = dict(confusion_counts(), **step_counts(amp=True),
                     instances=dict(confusion.instances))
-    expected = dict(logits=2 * CLI_VAL_BATCHES, labels=0,
-                    resize_backward_bf16=3 * CLI_TRAIN_STEPS)
     if any(launches[k] != v for k, v in expected.items()) or any(
             launches[k] for k in step_counts(amp=True)
             if k not in expected):
-        raise AssertionError(f"the train CLI launched {launches}, not "
-                             f"{expected}")
+        raise AssertionError(f"{what}: the train CLI launched {launches}, "
+                             f"not {expected}")
     classes, kernels = {}, {}
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            ms = evt.self_device_time_total / 1e3
-            kernels[evt.key] = ms
-            classes[kernel_class(evt.key)] = classes.get(
-                kernel_class(evt.key), 0.0) + ms
+    for evt in kernel_events(prof):
+        ms = evt.self_device_time_total / 1e3
+        kernels[evt.key] = ms
+        classes[kernel_class(evt.key)] = classes.get(
+            kernel_class(evt.key), 0.0) + ms
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     weights = work / "train" / "exp" / "weights"
     for name in ("last.pth", "best.pth"):
-        init_model(CONFIG, checkpoint=weights / name, device="cpu")
+        init_model(config, checkpoint=weights / name, device="cpu")
     if len(times["step"]) != CLI_TRAIN_STEPS or len(saved) != 2:
-        raise AssertionError(f"{len(times['step'])} steps, saved {saved}")
-    print("cli train: " + json.dumps(dict(
+        raise AssertionError(f"{what}: {len(times['step'])} steps, saved "
+                             f"{saved}")
+    print(f"{what} train: " + json.dumps(dict(
         steps=CLI_TRAIN_STEPS, step_ms=times["step"],
         ms_per_step=statistics.median(times["step"][1:]),
         epoch_ms=times["epoch"][0], val_ms_per_batch=times["val"],
@@ -2415,15 +2582,21 @@ def cli_train(common, work):
     return launches, weights / "best.pth"
 
 
-def cli_validate(common, work, best, n_val):
+VAL_MODES = (("amp", ["--amp"], "make_eval_step"),
+             ("tta", ["--tta"], "make_tta_eval_step"))
+
+
+def cli_validate(common, work, best, n_val, modes=VAL_MODES, label="cli"):
     """The val CLI on ``best`` with ``--amp`` (its decode mIoU within
     CLI_MIOU_TOL of the train run's own validation, recorded in
-    ``best.pth``) and with ``--tta``: ms a batch, launches."""
+    ``best.pth``; one K1 launch a batch and head of the ``--network-cfg``
+    in ``common``) and with ``--tta`` (one a batch), each of ``modes``: ms
+    a batch, launches."""
     recorded = load_file(best)["metadata"]
+    network = load_python_config(common[common.index("--network-cfg") + 1])
+    heads = 1 if network["model"].get("auxiliary_head") is None else 2
     out = {}
-    for what, flags, factory in (
-            ("amp", ["--amp"], "make_eval_step"),
-            ("tta", ["--tta"], "make_tta_eval_step")):
+    for what, flags, factory in modes:
         times = []
         reset_counts()
         argv = common + ["--checkpoint", str(best), "--batch-size",
@@ -2431,22 +2604,24 @@ def cli_validate(common, work, best, n_val):
                          "--name", what] + flags
         with timed_factory(val_cli, factory, times):
             quiet_run(val_cli.main, argv)
-        launches = dict(confusion_counts(),
+        launches = dict(confusion_counts(), flash=flash_counts(amp=True),
                         instances=dict(confusion.instances))
-        per_batch = 2 if what == "amp" else 1
+        per_batch = heads if what == "amp" else 1
         if (launches["logits"] != per_batch * CLI_VAL_BATCHES
                 or launches["labels"]):
-            raise AssertionError(f"val --{what} launched {launches}")
+            raise AssertionError(f"{label}: val --{what} launched "
+                                 f"{launches}")
         results = json.loads((work / "val" / what /
                               "results.json").read_text())
         check_metrics(results["metrics"])
         miou = results["metrics"]["decode"]["mIoU"]
         diff = abs(miou - recorded["metric.decode.mIoU"])
         if what == "amp" and diff > CLI_MIOU_TOL:
-            raise AssertionError(f"val --amp mIoU {miou} vs the train run's "
+            raise AssertionError(f"{label}: val --amp mIoU {miou} vs the "
+                                 f"train run's "
                                  f"{recorded['metric.decode.mIoU']}")
         out[what] = launches
-        print(f"cli val --{what}: " + json.dumps(dict(
+        print(f"{label} val --{what}: " + json.dumps(dict(
             ms_per_batch=times, miou=miou,
             train_run_miou=recorded["metric.decode.mIoU"],
             miou_difference=diff, losses=results["losses"],
@@ -2531,14 +2706,16 @@ def ragged_phase(device, best):
     return dict(launches=launches, instances=instances)
 
 
-def determinism_cost(device):
-    """The fused amp train step of the CLI (the kvasir schedule's batch at
-    AUG_SIZE², augmentation fused in) with deterministic algorithms off
-    and on, DETERMINISM_STEPS steps a block, blocks alternating twice."""
-    n = flagship_schedule()["train_batch_size"]
-    model = init_model(CONFIG, device=device)
+def determinism_cost(device, config=CONFIG, schedule=SCHEDULE,
+                     what="deeplabv3"):
+    """The fused amp train step of the CLI (``schedule``'s batch at
+    AUG_SIZE², augmentation fused in, its optimizer) with deterministic
+    algorithms off and on, DETERMINISM_STEPS steps a block, blocks
+    alternating twice."""
+    n = load_python_config(schedule)["train_batch_size"]
+    model = init_model(config, device=device)
     randomize_(model, seed=0)
-    optimizer_cfg, lr_config, _ = schedule_cfg()
+    optimizer_cfg, lr_config, _ = schedule_cfg(schedule)
     state = create_train_state(model, optimizer_cfg, lr_config)
     dataset = SyntheticDataset(pipeline=str(TRAIN_TRANSFORM), length=n,
                                image_size=(AUG_SIZE, AUG_SIZE))
@@ -2560,20 +2737,230 @@ def determinism_cost(device):
                     timed = timed_call(step, times[mode])
                     for _ in range(DETERMINISM_STEPS):
                         timed(*raw, gen)
+        ops = {}
         for mode in ("off", "on"):
             torch.use_deterministic_algorithms(mode == "on")
             torch.backends.cudnn.deterministic = mode == "on"
             with policy_scope("bf16"):
-                print_breakdown(f"deeplabv3 fused amp step, deterministic "
+                print_breakdown(f"{what} fused amp step, deterministic "
                                 f"{mode}", lambda: step(*raw, gen))
+                ops[mode] = op_device_ms(lambda: step(*raw, gen))
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
     medians = {mode: statistics.median(t) for mode, t in times.items()}
-    print("determinism cost (fused amp step): " + json.dumps(dict(
+    print(f"determinism cost ({what} fused amp step): " + json.dumps(dict(
         batch=[n, AUG_SIZE, AUG_SIZE, 3], step_ms=times,
-        median_ms=medians, on_over_off=medians["on"] / medians["off"])),
-        flush=True)
+        median_ms=medians, on_over_off=medians["on"] / medians["off"],
+        top_operators_device_ms=ops)), flush=True)
+
+
+def op_device_ms(fn, top=10):
+    """The operators whose own kernels take the most device time in one
+    ``fn()`` under ``torch.profiler``, as [name, ms] pairs."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [[evt.key, evt.self_device_time_total / 1e3]
+           for evt in prof.key_averages()
+           if evt.device_type == torch.autograd.DeviceType.CPU
+           and evt.self_device_time_total > 0]
+    return sorted(ops, key=lambda kv: -kv[1])[:top]
+
+
+def attention_layers(model):
+    """The number of attention calls a forward of ``model`` makes."""
+    return sum(isinstance(m, (mit.EfficientMultiheadAttention,
+                              vit.MultiheadAttention))
+               for m in model.modules())
+
+
+def segformer_phase(device):
+    """Phase 18, the SegFormer path at MiT-B2's full width: serving (8 x
+    640², float32 and amp, held against the port on the CPU and, under
+    amp, against plain attention); the fused train loop in float32 and
+    amp at the SegFormer schedule's 16 x 640² (AdamW, WarmScheduler, the
+    seeded default init); one float32 step at MiT-B0 on 4 x 256² against
+    float64 on the CPU; the CLIs under the SegFormer schedule as it is
+    (amp, ``deterministic=True``) and the cost of its deterministic
+    algorithms.  The launches of each path."""
+    model = init_model(SEGFORMER_CONFIG, device=device)
+    if attention_layers(model) != MIT_B2_LAYERS:
+        raise AssertionError(f"MiT-B2 has {attention_layers(model)} "
+                             f"attention layers")
+    randomize_(model, seed=0)
+    x_nchw, row = serve(model, False, SEGFORMER_BATCH, SEGFORMER_IMAGE_SIZE,
+                        MIT_B2_LAYERS, "segformer")
+    print("segformer slice: " + json.dumps(row), flush=True)
+    print_breakdown("segformer", lambda: model.inference(x_nchw))
+    cpu_agreement_phase(model, x_nchw, 320, 320, "segformer")
+    amp_launches = amp_slice_phase(model, mit, SEGFORMER_BATCH,
+                                   SEGFORMER_IMAGE_SIZE, MIT_B2_LAYERS,
+                                   "segformer")
+    del model, x_nchw
+    paths = dict(serve=row["launches"], serve_amp=amp_launches)
+    for amp in (False, True):
+        paths["train_amp" if amp else "train"] = fused_train_phase(
+            device, amp, config=SEGFORMER_CONFIG,
+            schedule_path=SEGFORMER_SCHEDULE, layers=MIT_B2_LAYERS,
+            resizes=SEGFORMER_RESIZES, what="segformer", randomize=False)
+    segformer_train_agreement_phase(device)
+    paths["cli"] = segformer_cli_phase(device)
+    return paths
+
+
+def segformer_train_agreement_phase(device):
+    """One float32 train step of SegFormer-B0 (the d = 32 kernels) without
+    drop path and head dropout, SEGFORMER_AGREE_BATCH at
+    SEGFORMER_AGREE_SIZE², on the card against float64 on the CPU (attention
+    and LayerNorm without their float32 casts), as phase 10."""
+    model, x, gt = agreement_inputs(SEGFORMER_AGREE_CONFIG,
+                                    SEGFORMER_AGREE_BATCH,
+                                    SEGFORMER_AGREE_SIZE)
+    if attention_layers(model) != MIT_B0_LAYERS:
+        raise AssertionError(f"MiT-B0 has {attention_layers(model)} "
+                             f"attention layers")
+    patches = (mock.patch.object(mit, "multihead_attention",
+                                 attention_in_input_dtype),
+               mock.patch.object(LayerNorm, "forward",
+                                 layer_norm_in_input_dtype))
+    train_agreement(device, "segformer train step", model, x, gt, patches,
+                    {k: per_step_launches(k, False, MIT_B0_LAYERS,
+                                          SEGFORMER_RESIZES)
+                     for k in step_counts()})
+
+
+def segformer_cli_phase(device):
+    """The train CLI for one epoch of CLI_TRAIN_STEPS steps on SegFormer-B2
+    under the SegFormer schedule as it is, on the Kvasir-shaped synthetic
+    dataset of phase 17, then the val CLI on its ``best.pth`` with
+    ``--amp`` (mIoU as the train run's), then the fused amp step with
+    deterministic algorithms off and on.  The launches of each."""
+    schedule = load_python_config(SEGFORMER_SCHEDULE)
+    n, n_val = schedule["train_batch_size"], schedule["val_batch_size"]
+    if not (schedule["amp"] and schedule["deterministic"]):
+        raise AssertionError("the SegFormer schedule no longer sets amp and "
+                             "deterministic")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_segformer_cli_"))
+    try:
+        dataset_cfg = tmp / "kvasir_shaped_synthetic.py"
+        dataset_cfg.write_text(CLI_DATASET.format(
+            train=n * CLI_TRAIN_STEPS, val=n_val * CLI_VAL_BATCHES,
+            size=AUG_SIZE, train_yaml=TRAIN_TRANSFORM, val_yaml=VAL_TRANSFORM))
+        work = tmp / "runs"
+        common = ["--network-cfg", str(SEGFORMER_CONFIG), "--dataset-cfg",
+                  str(dataset_cfg), "--work-dir", str(work), "--device",
+                  str(device)]
+        # the steps' kernels, and one forward a validation batch
+        expected = {k: CLI_TRAIN_STEPS * per_step_launches(
+            k, True, MIT_B2_LAYERS, SEGFORMER_RESIZES)
+            for k in step_counts(amp=True)}
+        expected["forward_bf16"] += MIT_B2_LAYERS * CLI_VAL_BATCHES
+        expected.update(logits=CLI_VAL_BATCHES, labels=0)
+        train, best = cli_train(common, work, expected,
+                                config=SEGFORMER_CONFIG,
+                                schedule=SEGFORMER_SCHEDULE,
+                                what="segformer cli")
+        val = cli_validate(common, work, best, n_val, modes=VAL_MODES[:1],
+                           label="segformer cli")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        amp_policy(False)
+    determinism_cost(device, SEGFORMER_CONFIG, SEGFORMER_SCHEDULE,
+                     "segformer")
+    return dict(train=train, val=val["amp"])
+
+
+def deterministic_amp_steps(device, model, schedule_path, layers, resizes,
+                            what):
+    """Two amp train steps of ``model`` (the first lets cuDNN choose its
+    algorithms) at ``schedule_path``'s train batch of AUG_SIZE² synthetic
+    images, with its optimizer, under ``torch.use_deterministic_algorithms``
+    (which raises on an op with no deterministic CUDA implementation):
+    each step's launches as ``per_step_launches``, finite losses; ms of
+    each step and peak memory.  The launches of both steps."""
+    n = load_python_config(schedule_path)["train_batch_size"]
+    optimizer_cfg, lr_config, _ = schedule_cfg(schedule_path)
+    state = create_train_state(model, optimizer_cfg, lr_config)
+    step = make_train_step(state.model, state.optimizer, state.scheduler)
+    _, x, masks = synthetic_batch(device, n, AUG_SIZE)
+    gt = torch.from_numpy(masks).to(device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    step_ms, per_step, losses = [], [], []
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with policy_scope("bf16"):
+            for _ in range(2):
+                counts = step_counts(amp=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(x, gt, generator)["loss"]))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                per_step.append({k: v - counts[k]
+                                 for k, v in step_counts(amp=True).items()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    expected = {k: per_step_launches(k, True, layers, resizes)
+                for k in step_counts(amp=True)}
+    if any(counts != expected for counts in per_step) or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what} amp steps launched {per_step}, not "
+                             f"{expected}; losses {losses}")
+    print(f"{what} deterministic amp step: " + json.dumps(dict(
+        batch=list(x.shape), step_ms=step_ms, loss=losses,
+        peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+        per_step=per_step[0])), flush=True)
+    return step_counts(amp=True)
+
+
+def pyramid_phase(device):
+    """Phase 19, the pyramid heads at full width: UPerNet on MiT-B0 (with
+    the SegFormer schedule), UPerNet on ResNetV1c-50 and PSPNet on
+    ResNetV1c-50-d8 (with the kvasir schedule): serving at PYRAMID_BATCH x PYRAMID_IMAGE_SIZE² (float32,
+    held against the port on the CPU), validation over two val batches
+    (K1 on both heads), then the amp train steps under deterministic
+    algorithms.  The launches of each path, per model."""
+    out = {}
+    for what, config, schedule_path, layers, resizes in (
+            ("upernet_mit-b0", UPERNET_CONFIG, SEGFORMER_SCHEDULE,
+             MIT_B0_LAYERS, UPERNET_RESIZES),
+            ("upernet_r50", UPERNET_R50_CONFIG, SCHEDULE, 0,
+             UPERNET_RESIZES),
+            ("pspnet_r50-d8", PSPNET_CONFIG, SCHEDULE, 0, PSPNET_RESIZES)):
+        model = init_model(config, device=device)
+        if attention_layers(model) != layers:
+            raise AssertionError(f"{what}: {attention_layers(model)} "
+                                 f"attention layers")
+        randomize_(model, seed=0)
+        x_nchw, row = serve(model, False, PYRAMID_BATCH, PYRAMID_IMAGE_SIZE,
+                            layers, what)
+        print(f"{what} slice: " + json.dumps(row), flush=True)
+        print_breakdown(what, lambda: model.inference(x_nchw))
+        cpu_agreement_phase(model, x_nchw, 320, 320, what)
+        n_val = load_python_config(schedule_path)["val_batch_size"]
+        _, x, masks = synthetic_batch(device, 2 * n_val, PYRAMID_IMAGE_SIZE)
+        gt = torch.from_numpy(masks).to(device)
+        validate = validate_batches(
+            TrainState(model, None), [(x[i:i + n_val], gt[i:i + n_val], {})
+                                for i in (0, n_val)],
+            "fp32", what=f"{what} validate")
+        del x, gt, x_nchw
+        out[what] = dict(serve=row["launches"], validate=validate,
+                         train=deterministic_amp_steps(
+                             device, model, schedule_path, layers, resizes,
+                             what))
+        del model
+    return out
 
 
 def main():
@@ -2581,6 +2968,9 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; nothing measured")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # cuBLAS's fixed workspace, which deterministic algorithms (phases 17
+    # to 19) require, in force from the process's first matrix product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     device = torch.device("cuda")
 
     smi = subprocess.run(
@@ -2644,7 +3034,8 @@ def main():
     cpu_agreement_phase(setr, setr_x, 320, 320, "setr")
     if not schedule_cfg()[2]:
         raise AssertionError("the kvasir schedule no longer sets amp")
-    amp_launches = setr_amp_slice_phase(setr)
+    amp_launches = amp_slice_phase(setr, vit, SETR_BATCH, SETR_IMAGE_SIZE,
+                                   SETR_LAYERS, "setr")
     del setr, setr_x
     train_launches = setr_train_phase(device)
     setr_train_agreement_phase(device)
@@ -2653,19 +3044,32 @@ def main():
     deeplab_train_agreement_phase(device)
     deeplab_amp = deeplab_train_phase(device, amp=True)
     pipeline_phase(device)
-    fused = deeplab_fused_phase(device)
-    fused_amp = deeplab_fused_phase(device, amp=True)
+    fused = fused_train_phase(device)
+    fused_amp = fused_train_phase(device, amp=True)
     cli, cli_instances = cli_phase(device)
+    segformer = segformer_phase(device)
+    pyramid = pyramid_phase(device)
     # the flagship's evaluation paths: validation in float32 and under amp
-    # (on ready batches and through the val pipeline), TTA in float32
+    # (on ready batches and through the val pipeline), TTA in float32; the
+    # new heads' validation (SegFormer's through the val pipeline)
     eval_paths = (deeplab["validate"], deeplab["tta"],
                   deeplab_amp["validate"], fused["validate"],
-                  fused_amp["validate"])
+                  fused_amp["validate"], segformer["train"]["validate"],
+                  segformer["train_amp"]["validate"],
+                  *(p["validate"] for p in pyramid.values()))
+    # the new paths' serving (the evaluator) and the SegFormer CLIs
+    new_serving = (segformer["serve"], segformer["serve_amp"],
+                   *(p["serve"] for p in pyramid.values()))
+    segformer_cli = (segformer["cli"]["train"], segformer["cli"]["val"])
     # every confusion instance of a main path was held against the plain
     # version in the kernel phase
     path_instances = {*instances, *setr_launches["confusion_instances"],
                       *amp_launches["confusion_instances"], *cli_instances,
-                      *(k for path in eval_paths for k in path["instances"])}
+                      *(k for path in eval_paths for k in path["instances"]),
+                      *(k for path in new_serving
+                        for k in path["confusion_instances"]),
+                      *(k for path in segformer_cli
+                        for k in path["instances"])}
     if not path_instances <= set(held_instances):
         raise AssertionError(f"confusion instances of a main path that the "
                              f"kernel phase never held: "
@@ -2687,6 +3091,40 @@ def main():
                       if r["shape"] == [8, 256, 160, 160]
                       and r["dtype"] == "bfloat16")
     setr_bf16_row = flash_rows[1]
+    # the launches of each flash and resize-backward counter on the new
+    # paths (phases 18 and 19): the train steps (SegFormer float32 and amp,
+    # its train CLI, the pyramid heads' amp steps), the val CLI and the
+    # serving forwards
+    new_steps = (segformer["train"]["train"], segformer["train_amp"]["train"],
+                 segformer["cli"]["train"],
+                 *(path["train"] for path in pyramid.values()))
+    new = {k: sum(path.get(k, 0) for path in new_steps)
+           + segformer["cli"]["val"]["flash"].get(k, 0)
+           for k in [*flash_attention.launches, *resize_backward.launches]}
+    for path in (segformer["serve"],
+                 *(path["serve"] for path in pyramid.values())):
+        new["forward"] += path["flash"]
+        new["split_bf16x3"] += path["split"]
+    new["forward_bf16"] += segformer["serve_amp"]["flash"]
+    new_k1 = (sum(path["confusion"] for path in new_serving)
+              + sum(path["logits"] for path in segformer_cli))
+    if not all(new.values()) or not new_k1:
+        raise AssertionError(f"a kernel of the SegFormer and pyramid paths "
+                             f"never launched: {new}, K1 {new_k1}")
+
+    def mit_entries(kernel_rows, dtype, keys):
+        """The MiT stage rows of one dtype, ``keys`` of each."""
+        return [{k: r[k] for k in ("mit", "shape", *keys)}
+                for r in kernel_rows if r["mit"]
+                and r["dtype"] == str(dtype).replace("torch.", "")]
+
+    fwd_keys = ("ms", "device_ms", "plain_ms", "sdpa_ms", "sdpa_device_ms",
+                "bound_ms", "bound_by", "ctas", "max_abs_err")
+    segformer_resize = [r for r in resize_rows
+                        if [r["shape"], r["size"]] in
+                        [[list(a), list(b)] for a, b in
+                         (*SEGFORMER_RESIZE_SHAPES, *PSPNET_RESIZE_SHAPES,
+                          *PYRAMID_RESIZE_SHAPES)]]
 
     source = ("image_segmentation_lab_tpu_torch/csrc/"
               "flash_attention_bwd_sm90.cu")
@@ -2708,7 +3146,8 @@ def main():
                 "route": "cuda",
                 "source": source,
                 "replaces": f"{flash_py}:{line}",
-                "launches": train[f"backward_{part}{suffix}"],
+                "launches": train[f"backward_{part}{suffix}"]
+                            + new[f"backward_{part}{suffix}"],
                 "max_abs_err": max(max(r["max_abs_err"][g] for g in grads)
                                    for r in dtype_rows),
                 "ms": row[f"{part}_ms"],
@@ -2722,7 +3161,13 @@ def main():
                 "library_device_ms": row["sdpa_backward_device_ms"],
                 "delta_device_ms": row["delta_device_ms"],
                 "backward_device_ms": row["backward_device_ms"],
-                "sass": bwd_mma}
+                "sass": bwd_mma,
+                # the four stages of each MiT train case
+                "mit": mit_entries(bwd_rows, dtype, (
+                    f"{part}_ms", f"{part}_device_ms", "plain_ms",
+                    "sdpa_backward_ms", "sdpa_backward_device_ms",
+                    f"{part}_bound_ms", f"{part}_bound_by", f"{part}_ctas",
+                    "max_abs_err"))}
             if dtype == torch.float32:
                 # the bound of the route taken, six bf16 products per
                 # float32 product on the tensor cores; beside it float32's
@@ -2743,10 +3188,11 @@ def main():
                          "confusion.py:98",
         # the DeepLabV3 and SETR serving slices, the flagship's validation
         # (also through the val pipeline) and TTA, and the CLIs (K1) with
-        # the ragged evaluator path (K2)
+        # the ragged evaluator path (K2); SegFormer's and the pyramid
+        # heads' serving and validation, and the SegFormer CLIs (K1)
         "launches": sum(path["logits"] + path["labels"] for path in
                         (launches, setr_launches_k1, amp_launches_k1,
-                         *eval_paths, cli)),
+                         *eval_paths, cli)) + new_k1,
         "cli_launches": {"logits": cli["logits"], "labels": cli["labels"]},
         "max_abs_err": max(max(r["max_abs_err"], r["labels_max_abs_err"])
                            for r in rows),
@@ -2781,8 +3227,9 @@ def main():
                   "flash_attention_sm90.cu",
         "replaces": "image_segmentation_lab_tpu/ops/pallas/"
                     "flash_attention.py:61",
-        # the float32 serving phase and the float32 train steps
-        "launches": setr_launches["flash"] + train_launches["forward"],
+        # the float32 serving phases and the float32 train steps
+        "launches": setr_launches["flash"] + train_launches["forward"]
+                    + new["forward"],
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                            if r["dtype"] == "float32"),
         "ms": setr_row["ms"],
@@ -2799,6 +3246,8 @@ def main():
         "library_ms": setr_row["sdpa_ms"],
         "library_device_ms": setr_row["sdpa_device_ms"],
         "sass": mma,
+        "mit": mit_entries(flash_rows, torch.float32,
+                           (*fwd_keys, "split_device_ms")),
     }, {
         "name": "flash_attention_forward_bf16",
         "route": "cuda",
@@ -2806,9 +3255,10 @@ def main():
                   "flash_attention_sm90.cu",
         "replaces": "image_segmentation_lab_tpu/ops/pallas/"
                     "flash_attention.py:61",
-        # the amp serving phase and the amp train steps
+        # the amp serving phases and the amp train steps
         "launches": amp_launches["flash"]
-                    + amp_train_launches["forward_bf16"],
+                    + amp_train_launches["forward_bf16"]
+                    + new["forward_bf16"],
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows
                            if r["dtype"] == "bfloat16"),
         "ms": setr_bf16_row["ms"],
@@ -2819,6 +3269,7 @@ def main():
         "library_ms": setr_bf16_row["sdpa_ms"],
         "library_device_ms": setr_bf16_row["sdpa_device_ms"],
         "sass": mma,
+        "mit": mit_entries(flash_rows, torch.bfloat16, fwd_keys),
     }] + backward_entries(torch.float32, train_launches) + [{
         # the float32 operand split of the forward (q, k, v) and the
         # backward (q, k, v, dO), part of the K3-K5 port; one kernel in
@@ -2829,8 +3280,9 @@ def main():
         "source": "image_segmentation_lab_tpu_torch/csrc/sm90_bf16x3.cuh",
         "replaces": f"{flash_py}:156",
         "also_replaces": [f"{flash_py}:187", f"{flash_py}:61"],
-        # the float32 serving phase and train steps (forward and backward)
-        "launches": setr_launches["split"] + train_launches["split_bf16x3"],
+        # the float32 serving phases and train steps (forward and backward)
+        "launches": setr_launches["split"] + train_launches["split_bf16x3"]
+                    + new["split_bf16x3"],
         "max_abs_err": 0.0,  # phases 4 and 8 raise unless it gives plain's
                              # bits
         "ms": f32_rows[0]["split_ms"],
@@ -2847,10 +3299,12 @@ def main():
         "route": "cuda",
         "source": "image_segmentation_lab_tpu_torch/csrc/resize_backward.cu",
         "replaces": "image_segmentation_lab_tpu/utils/ops.py:74",
-        # the SETR train steps, float32 and amp
+        # the SETR train steps, float32 and amp; SegFormer's train steps
+        # (float32, amp, the CLI) and the pyramid heads' amp steps
         "launches": sum(counts[k] for counts in
                         (train_launches, amp_train_launches)
-                        for k in RESIZE_KEY.values()),
+                        for k in RESIZE_KEY.values())
+                    + new["resize_backward"] + new["resize_backward_bf16"],
         "max_abs_err": 0.0,  # phase 8b raises unless it gives plain's bits
         "ms": resize_row["ms"],
         "device_ms": resize_row["device_ms"],
@@ -2859,6 +3313,11 @@ def main():
         "bound_by": resize_row["bound_by"],
         "library_ms": resize_row["library_ms"],
         "library_device_ms": resize_row["library_device_ms"],
+        # every SegFormer-B2, UPerNet and PSPNet shape and dtype
+        "rows": [{k: r[k] for k in ("shape", "size", "dtype", "ms",
+                                    "device_ms", "plain_ms", "library_ms",
+                                    "library_device_ms", "bound_ms",
+                                    "bound_by")} for r in segformer_resize],
     }, {
         # the same kernel on the flagship's wide tables (taps one at a
         # time); the row is the ASPP image pool in bf16, as the amp step

@@ -11,6 +11,8 @@ holds them, never by their shape (a square linear weight looks the same
 either way round):
 
 * ``nn.Conv2d`` weights: HWIO → OIHW;
+* ``PointwiseLinear`` weights (a JAX 1 x 1 conv as a linear over
+  channels-last tokens): ``(1, 1, in, out)`` → ``(out, in)``;
 * ``nn.Linear`` weights: ``(in, out)`` → ``(out, in)``;
 * everything else (biases, norm affines and statistics, ViT's
   ``cls_token`` and ``pos_embed``): unchanged.
@@ -31,6 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.basic.convolution import PointwiseLinear
+
 _LIST_INDEX = re.compile(r"\.(\d+)(?=\.|$)")
 
 
@@ -39,10 +43,13 @@ def jax_name(torch_name: str) -> str:
     return _LIST_INDEX.sub(r"_\1", torch_name)
 
 
-# per module type: (JAX layout -> port layout, port layout -> JAX layout)
+# per module type, the first that matches: (JAX layout -> port layout,
+# port layout -> JAX layout)
 _LAYOUTS = {
     nn.Conv2d: (lambda a: a.transpose(3, 2, 0, 1),   # HWIO -> OIHW
                 lambda a: a.transpose(2, 3, 1, 0)),  # OIHW -> HWIO
+    PointwiseLinear: (lambda a: a[0, 0].T,           # (1, 1, in, out)
+                      lambda a: a.T[None, None]),    # (out, in)
     nn.Linear: (np.transpose, np.transpose),
 }
 
@@ -56,6 +63,7 @@ def layout_maps(model: nn.Module, to_jax: bool = False) -> Dict[str,
         for kind, pair in _LAYOUTS.items():
             if isinstance(module, kind):
                 maps[f"{name}.weight" if name else "weight"] = pair[to_jax]
+                break
     return maps
 
 
@@ -74,31 +82,43 @@ def jax_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_jax_state_dict(model: nn.Module,
-                        state_dict: Dict[str, np.ndarray]) -> None:
-    """Copy a JAX-package state dict into ``model`` in place (strict)."""
+def mapped_state_dict(model: nn.Module, state_dict: Dict[str, np.ndarray]
+                      ) -> Dict[str, np.ndarray]:
+    """Port tensor name -> its JAX array in the port's layout (a view where
+    the layout map allows one), checked strictly against the shapes of
+    ``model.state_dict()``; a model on the ``meta`` device and arrays that
+    are zero-stride views check a full-size mapping without memory."""
     targets = {k: v for k, v in model.state_dict().items()
                if not k.endswith("num_batches_tracked")}
     layout = layout_maps(model)
     remaining = dict(state_dict)
-    missing, mismatched = [], []
-    with torch.no_grad():
-        for name, tensor in targets.items():
-            key = jax_name(name)
-            if key not in remaining:
-                missing.append(f"{name} (JAX {key})")
-                continue
-            arr = np.asarray(remaining.pop(key))
-            if name in layout:
-                arr = layout[name](arr)
-            if tuple(arr.shape) != tuple(tensor.shape):
-                mismatched.append(f"{name}: checkpoint {arr.shape} vs model "
-                                  f"{tuple(tensor.shape)}")
-                continue
-            tensor.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+    missing, mismatched, mapped = [], [], {}
+    for name, tensor in targets.items():
+        key = jax_name(name)
+        if key not in remaining:
+            missing.append(f"{name} (JAX {key})")
+            continue
+        arr = np.asarray(remaining.pop(key))
+        if name in layout:
+            arr = layout[name](arr)
+        if tuple(arr.shape) != tuple(tensor.shape):
+            mismatched.append(f"{name}: checkpoint {arr.shape} vs model "
+                              f"{tuple(tensor.shape)}")
+            continue
+        mapped[name] = arr
     if missing or remaining or mismatched:
         raise KeyError(
             f"JAX state dict does not match the model: "
             f"port tensors left unfilled={missing}, "
             f"JAX leaves unused={sorted(remaining)}, "
             f"shape mismatches={mismatched}")
+    return mapped
+
+
+def load_jax_state_dict(model: nn.Module,
+                        state_dict: Dict[str, np.ndarray]) -> None:
+    """Copy a JAX-package state dict into ``model`` in place (strict)."""
+    targets = model.state_dict()
+    with torch.no_grad():
+        for name, arr in mapped_state_dict(model, state_dict).items():
+            targets[name].copy_(torch.from_numpy(np.ascontiguousarray(arr)))

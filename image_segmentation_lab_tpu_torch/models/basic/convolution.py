@@ -9,6 +9,11 @@ computes, so here the dilated conv is cuDNN's.
 ``Linear`` is ``nn.Linear``, whose weight is ``(out, in)``: the transpose of
 the JAX ``Linear``'s ``(in, out)`` kernel, which ``bridge.py`` transposes.
 Like the JAX one it is in no registry.
+
+``PointwiseLinear`` is an ``nn.Linear`` over channels-last tokens that
+stands for a JAX 1 x 1 ``Conv2d`` (MiT's projections): the same product,
+with the weight stored ``(1, 1, in, out)`` on the JAX side, which
+``bridge.py`` maps by this type.
 """
 
 from torch import nn
@@ -17,3 +22,7 @@ from ...core.registry_hub import CONVOLUTION
 
 Conv2d = CONVOLUTION.register("Conv2d", aliases=("Conv",))(nn.Conv2d)
 Linear = nn.Linear
+
+
+class PointwiseLinear(nn.Linear):
+    """A JAX 1 x 1 convolution, applied to ``(..., in)`` tokens."""

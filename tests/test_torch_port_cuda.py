@@ -13,6 +13,7 @@ others' inputs as they were.
 
 import ast
 import inspect
+import os
 import zlib
 
 import numpy as np
@@ -25,6 +26,9 @@ from image_segmentation_lab_tpu_torch.ops import (attention, confusion,
 from image_segmentation_lab_tpu_torch.utils.ops import resize
 
 pytestmark = pytest.mark.cuda
+# cuBLAS's fixed workspace, which deterministic algorithms require, in
+# force from the process's first matrix product
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 def case_seed(name):
@@ -508,7 +512,17 @@ BWD_CASES = {
     "one_key_f32": ((2, 2, 70, 1, 64), torch.float32),
     "d32_f32": ((2, 4, 200, 200, 32), torch.float32),
     "fit_128_contiguous_f32": ((2, 3, 128, 128, 64), torch.float32),
+    # MiT's spatially reduced attention at 640² (batch cut to 2): MiT-B2
+    # (d = 64) stages 1 and 3, MiT-B0 (d = 32) stage 2; q alone, k and v
+    # views of the fused kv projection
+    "mit_b2_stage1_f32": ((2, 1, 25600, 400, 64), torch.float32),
+    "mit_b2_stage1_bf16": ((2, 1, 25600, 400, 64), torch.bfloat16),
+    "mit_b2_stage3_f32": ((2, 5, 1600, 400, 64), torch.float32),
+    "mit_b2_stage3_bf16": ((2, 5, 1600, 400, 64), torch.bfloat16),
+    "mit_b0_stage2_f32": ((2, 2, 6400, 400, 32), torch.float32),
+    "mit_b0_stage2_bf16": ((2, 2, 6400, 400, 32), torch.bfloat16),
 }
+MIT_CASES = sorted(name for name in BWD_CASES if name.startswith("mit_b"))
 # the launch counter of each backward kernel, by dtype
 BWD_KEYS = {torch.float32: ("backward_dq", "backward_dkv"),
             torch.bfloat16: ("backward_dq_bf16", "backward_dkv_bf16")}
@@ -583,6 +597,16 @@ def test_flash_backward_kernels_match_plain(cuda, name, monkeypatch):
     assert backward == {key: int(key in BWD_KEYS[q.dtype])
                         for key in backward}
     assert flash_attention.launches["split_bf16x3"] == BWD_SPLITS[q.dtype]
+
+
+@pytest.mark.parametrize("name", MIT_CASES)
+def test_flash_forward_on_mit_kv_views_matches_plain(cuda, name):
+    """The forward kernel at MiT's Lq >> Lk, on k and v as strided views of
+    one fused kv projection."""
+    q, k, v, _ = projection_views(name, cuda)
+    assert not k.is_contiguous() and k.stride(1) == 2 * k.shape[2] * \
+        k.shape[3]
+    assert_flash_matches_plain(q, k, v)
 
 
 @pytest.mark.parametrize("name", ["setr_bf16", "masked_tail_bf16",
@@ -891,3 +915,39 @@ def test_fused_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
             np.testing.assert_allclose(card_state[key].cpu().numpy(),
                                        ref.numpy(), rtol=1e-4, atol=1e-5,
                                        err_msg=key)
+
+
+def test_ppm_backward_under_deterministic_algorithms(cuda, monkeypatch):
+    """PSPNet's pyramid pooling at its 640² shapes in miniature (an 80²
+    map, scales 1, 2, 3, 6: uneven bins) under
+    ``torch.use_deterministic_algorithms(True)``, which PyTorch's own
+    adaptive average pooling backward refuses above 1 x 1: forward and
+    backward run, give the same bits twice, and the input gradient equals
+    the CPU's (rtol 1e-4, atol 1e-6)."""
+    import copy
+
+    from image_segmentation_lab_tpu_torch.models.decode_heads import PPM
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    torch.manual_seed(case_seed("ppm_deterministic"))
+    cpu_ppm = PPM((1, 2, 3, 6), 64, 16, norm_cfg=dict(type="SyncBatchNorm"),
+                  act_cfg=dict(type="ReLU"))
+    card_ppm = copy.deepcopy(cpu_ppm).to(cuda)
+    g = torch.Generator(device="cpu").manual_seed(case_seed("ppm_x"))
+    x = torch.randn(2, 64, 80, 80, generator=g)
+    gy = torch.randn(2, 4 * 16, 80, 80, generator=g)
+    grads = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for module, device in ((card_ppm, cuda), (card_ppm, cuda),
+                               (cpu_ppm, "cpu")):
+            leaf = x.to(device).requires_grad_(True)
+            with torch.enable_grad():
+                out = torch.cat(module(leaf), dim=1)
+                (grad,) = torch.autograd.grad(out, leaf, gy.to(device))
+            grads.append(grad.cpu())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], grads[2], rtol=1e-4, atol=1e-6)

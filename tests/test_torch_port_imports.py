@@ -18,6 +18,11 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert len(names) > 20, names
+new = ("models.backbones.mit", "models.decode_heads.segformer_head",
+       "models.decode_heads.psp_head", "models.decode_heads.uper_head",
+       "ops.pooling")
+missing = [m for m in new if pkg.__name__ + "." + m not in names]
+assert not missing, missing
 forbidden = ("jax", "flax", "optax", "orbax", "image_segmentation_lab_tpu",
              "tools", "yaml", "cv2", "PIL", "matplotlib", "triton")
 loaded = sorted(m for m in forbidden if m in sys.modules)
