@@ -205,7 +205,28 @@ printing its own lines; any failure raises and the exit code is not 0:
    x 640² (the first lets cuDNN choose) under
    ``torch.use_deterministic_algorithms``: 12 (UPerNet) and 6 (PSPNet)
    bf16 resize-backward launches a step, 8 of each bf16 flash kernel
-   (UPerNet), step ms and peak memory.
+   (UPerNet), step ms and peak memory;
+20. UPerNet's backbone family at full width: UPerNet on Swin-T (window 7
+   and window 8), ConvNeXt-T, BEiT-B and MAE-B (the last two through the
+   Feature2Pyramid neck), each served at 8 x 512² in float32 (held against
+   the port on the CPU on a 320² window; no flash launch: their attention
+   adds a relative-position bias and runs as two matrix products),
+   validated over two batches of the schedule's val batch (2 K1 launches
+   a batch), then two amp train steps at the schedule's train batch of
+   640² (Swin and ConvNeXt: the SegFormer schedule; BEiT and MAE: the BEiT
+   fine-tuning schedule with its layer-decay param groups) under
+   ``torch.use_deterministic_algorithms``: 12 bf16 resize-backward
+   launches a step, step ms and peak memory; BEiT-B's table work at 640²
+   (the bicubic resample as matrix products against ``F.interpolate``'s,
+   whose backward has no deterministic implementation, and the bias
+   gather's backward) with deterministic algorithms off and on; one
+   float32 step of Swin-T (the kvasir SGD) and of BEiT-B (its schedule's
+   AdamW param groups, each group's lr checked) at 2 x 224² against
+   float64 on the CPU, as phase 10 (BEiT's updates reported, not held:
+   Adam's first update is about lr · sign(g)); the train CLI on
+   UPerNet-BEiT-B with the BEiT schedule as it is for 3 steps (the param
+   groups in ``last.pth``), then ``val.main --amp`` on its ``best.pth``
+   (mIoU within 0.05 of the train run's).
 
 Kernel times: the wrapper's median of 20 calls by CUDA events and the
 kernel's own device time from ``torch.profiler`` (for SDPA's forward, of
@@ -251,6 +272,8 @@ from image_segmentation_lab_tpu_torch.core.dataset.synthetic import \
     make_synthetic_item
 from image_segmentation_lab_tpu_torch import train as train_cli
 from image_segmentation_lab_tpu_torch import val as val_cli
+from image_segmentation_lab_tpu_torch.core.builder import (LR_SCHEDULER,
+                                                          build_from_cfg)
 from image_segmentation_lab_tpu_torch.core.evaluation import SegEvaluator
 from image_segmentation_lab_tpu_torch.core.fileio import load_python_config
 from image_segmentation_lab_tpu_torch.core.initialize.checkpoint import \
@@ -461,22 +484,51 @@ PSPNET_RESIZE_SHAPES = [((16, 512, 1, 1), (80, 80)),
                         ((16, 512, 6, 6), (80, 80))]
 
 
-def upernet_resizes(channels):
-    """UPerHead's resizes under grad at 16 x 640² on ``channels``: the PPM's
+def upernet_resizes(channels, n=16):
+    """UPerHead's resizes under grad at n x 640² on ``channels``: the PPM's
     four upsamples to the 20² map, the three top-down steps and the three
     fpn outputs to the 160² map."""
-    return ([((16, channels, s, s), (20, 20)) for s in (1, 2, 3, 6)]
-            + [((16, channels, s, s), (2 * s, 2 * s)) for s in (20, 40, 80)]
-            + [((16, channels, s, s), (160, 160)) for s in (80, 40, 20)])
+    return ([((n, channels, s, s), (20, 20)) for s in (1, 2, 3, 6)]
+            + [((n, channels, s, s), (2 * s, 2 * s)) for s in (20, 40, 80)]
+            + [((n, channels, s, s), (160, 160)) for s in (80, 40, 20)])
 
 
 # the rest of the pyramid heads' amp steps (bf16 only): UPerNet's on MiT-B0
-# (256 channels) and on ResNet-50 (512), its aux loss's resize from 40²,
-# PSPNet's PPM at scales 2 and 3
+# (256 channels) and on ResNet-50 (512; Swin-T's and ConvNeXt-T's are the
+# same shapes), its aux loss's resize from 40², PSPNet's PPM at scales 2
+# and 3; UPerNet-BEiT-B's and MAE-B's at their schedule's 8 x 640² (768
+# channels) with their losses' resizes
 PYRAMID_RESIZE_SHAPES = [*upernet_resizes(256), *upernet_resizes(512),
                          ((16, 2, 40, 40), (640, 640)),
                          ((16, 512, 2, 2), (80, 80)),
-                         ((16, 512, 3, 3), (80, 80))]
+                         ((16, 512, 3, 3), (80, 80)),
+                         *upernet_resizes(768, n=8),
+                         ((8, 2, 160, 160), (640, 640)),
+                         ((8, 2, 40, 40), (640, 640))]
+# phase 20, UPerNet's backbone family: each config served at 8 x 512²,
+# validated over two val batches, two amp train steps at its schedule's
+# train batch of 640² (Swin and ConvNeXt: the SegFormer schedule; BEiT and
+# MAE: the BEiT fine-tuning schedule, AdamW with layer decay), each step
+# UPerHead's 12 bilinear resizes under grad (BEiT's and MAE's bicubic
+# table resamples are matrix products, no kernel)
+BEIT_SCHEDULE = ROOT / "configs/schedule/beit_finetune_schedule.py"
+BEIT_CONFIG = ROOT / "configs/network/beit/upernet_beit-b.py"
+SWIN_CONFIG = ROOT / "configs/network/upernet/upernet_swin-t.py"
+BACKBONE_CASES = [  # name, config, schedule
+    ("upernet_swin-t", SWIN_CONFIG, SEGFORMER_SCHEDULE),
+    ("upernet_swin-t-w8", ROOT / "configs/network/upernet/"
+     "upernet_swin-t-w8.py", SEGFORMER_SCHEDULE),
+    ("upernet_convnext-t", ROOT / "configs/network/upernet/"
+     "upernet_convnext-t.py", SEGFORMER_SCHEDULE),
+    ("upernet_beit-b", BEIT_CONFIG, BEIT_SCHEDULE),
+    ("upernet_mae-b", ROOT / "configs/network/mae/upernet_mae-b.py",
+     BEIT_SCHEDULE)]
+# the float32 agreement steps of Swin-T and BEiT-B (phases 10 and 13)
+BACKBONE_AGREE_BATCH, BACKBONE_AGREE_SIZE = 2, 224
+# BEiT-B's relative-position tables at 640²: a 27² field of 12 heads to 79²,
+# gathered by a (1601, 1601) index from 79² + 3 rows
+BEIT_TABLE_FIELD, BEIT_TABLE_GRID = (1, 12, 27, 27), (79, 79)
+BEIT_TOKENS = 1601
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
@@ -944,7 +996,8 @@ def randomize_(model, seed):
                 fill(m.bias, -0.1, 0.1)
             elif isinstance(m, torch.nn.Linear):
                 unit_gain(m.weight)
-                fill(m.bias, -0.1, 0.1)
+                if m.bias is not None:
+                    fill(m.bias, -0.1, 0.1)
         for head in (model.decode_head, model.auxiliary_head):
             if head is not None:
                 unit_gain(head.conv_seg.weight)
@@ -1594,16 +1647,22 @@ def agreement_inputs(config, batch, size):
     return model, x, torch.from_numpy(masks).long()
 
 
-def one_train_step(model, x, gt, device):
+def one_train_step(model, x, gt, device, schedule=SCHEDULE):
     """One ``make_train_step`` step of ``model`` (already on ``device``)
-    with the kvasir schedule; the loss."""
-    optimizer_cfg, lr_config, _ = schedule_cfg()
+    with ``schedule`` (the kvasir one by default); the loss and each param
+    group's lr after the step against ``base_lr · lr_mult`` times the
+    schedule's rate at step 1 (its largest relative difference)."""
+    optimizer_cfg, lr_config, _ = schedule_cfg(schedule)
     state = create_train_state(model, optimizer_cfg, lr_config)
     step = make_train_step(state.model, state.optimizer, state.scheduler)
     dtype = next(model.parameters()).dtype
     log = step(x.to(device=device, dtype=dtype), gt.to(device),
                torch.Generator(device=device).manual_seed(0))
-    return float(log["loss"])
+    rate = build_from_cfg(lr_config, LR_SCHEDULER).schedule(
+        optimizer_cfg["lr"], 1)(1)
+    lr_err = max(abs(g["lr"] / (g.get("lr_mult", 1.0) * rate) - 1.0)
+                 for g in state.optimizer.param_groups)
+    return float(log["loss"]), lr_err
 
 
 def attention_in_input_dtype(q, k, v, scale):
@@ -1675,7 +1734,8 @@ def replayed_branches(branches):
                              "the recorded one")
 
 
-def train_agreement(device, what, model, x, gt, patches, expected):
+def train_agreement(device, what, model, x, gt, patches, expected,
+                    schedule=SCHEDULE, hold_updates=True, run_own=True):
     """One train step of ``model`` (on the CPU) from the same weights on
     the card, in float32, which must launch the ``expected`` kernels
     (``step_counts()``), and twice on the CPU in float64 under
@@ -1686,15 +1746,21 @@ def train_agreement(device, what, model, x, gt, patches, expected):
     A ReLU input within float32's rounding of 0, or a max-pool window
     with two values that close, takes the other branch in float64, and the
     gradient jumps there; the second step's distance and the number of
-    such flipped branches are reported."""
+    such flipped branches are reported.  ``schedule`` (the kvasir one by
+    default) gives the optimizer; each param group's lr after the card's
+    step must be its ``base_lr · lr_mult`` times the schedule (1e-6).
+    Without ``hold_updates`` (an Adam-family first step, whose update is
+    about ``lr · sign(g)``, so a gradient within rounding of 0 may flip
+    it) the parameters after the update are reported, not held.  Without
+    ``run_own`` the float64 step on its own branches is skipped."""
     gpu_model = copy.deepcopy(model).to(device)
-    own_model = copy.deepcopy(model).double()
+    own_model = copy.deepcopy(model).double() if run_own else None
     before = {k: t.double() for k, t in snapshot(model).items()}
     ref_model = model.double()
     reset_counts()
     card_branches, own_branches = [], []
     with recorded_branches(card_branches):
-        gpu_loss = one_train_step(gpu_model, x, gt, device)
+        gpu_loss, lr_err = one_train_step(gpu_model, x, gt, device, schedule)
     torch.cuda.synchronize()
     launches = step_counts()
     if launches != expected:
@@ -1706,10 +1772,17 @@ def train_agreement(device, what, model, x, gt, patches, expected):
         for patch in patches:
             stack.enter_context(patch)
         with replayed_branches(card_branches):
-            ref_loss = one_train_step(ref_model, x, gt, torch.device("cpu"))
-        with recorded_branches(own_branches):
-            own_loss = one_train_step(own_model, x, gt, torch.device("cpu"))
+            ref_loss, _ = one_train_step(ref_model, x, gt,
+                                         torch.device("cpu"), schedule)
+        own_loss = None
+        if run_own:
+            with recorded_branches(own_branches):
+                own_loss, _ = one_train_step(own_model, x, gt,
+                                             torch.device("cpu"), schedule)
     cpu_s = time.perf_counter() - t0
+    if lr_err > 1e-6:
+        raise AssertionError(f"{what}: a param group's lr is off its "
+                             f"lr_mult times the schedule by {lr_err}")
     if abs(gpu_loss - ref_loss) > 1e-4 * abs(ref_loss):
         raise AssertionError(f"loss {gpu_loss} on the card, {ref_loss} in "
                              f"float64 on the CPU")
@@ -1744,20 +1817,24 @@ def train_agreement(device, what, model, x, gt, patches, expected):
                    for name, (err, scale, floor) in gpu[kind].items()}
             for kind in gpu}
     over = sorted(((share, kind, name) for kind in used
-                   for name, share in used[kind].items() if share > 1.0),
+                   for name, share in used[kind].items()
+                   if share > 1.0 and (hold_updates or kind == "grad")),
                   reverse=True)
     if over:
         raise AssertionError(f"{len(over)} tensors beyond the allowed error "
                              f"(error / allowed, kind, name): {over[:5]}")
     grad_shares, worst = worst_grads(gpu)
-    _, worst_own = worst_grads(shares(own_model))
+    _, worst_own = (worst_grads(shares(own_model)) if run_own
+                    else (None, None))
     print(f"cpu agreement ({what}): " + json.dumps(dict(
         batch=list(x.shape), loss_float64=ref_loss,
         loss_float64_own_branches=own_loss, loss_gpu=gpu_loss,
         launches=launches, cpu_float64_seconds=cpu_s,
+        updates_held=hold_updates, lr_group_error=lr_err,
         branches=len(card_branches),
         flipped_branches=sum(int((a != b).sum()) for a, b in
-                             zip(card_branches, own_branches, strict=True)),
+                             zip(card_branches, own_branches, strict=True))
+        if run_own else None,
         tensors=len(grad_shares),
         grads_over_1e_3_of_max=sum(v > 1e-3 for v in grad_shares.values()),
         worst_grad_share_of_max=worst,
@@ -2878,13 +2955,14 @@ def segformer_cli_phase(device):
 
 
 def deterministic_amp_steps(device, model, schedule_path, layers, resizes,
-                            what):
+                            what, breakdown=False):
     """Two amp train steps of ``model`` (the first lets cuDNN choose its
     algorithms) at ``schedule_path``'s train batch of AUG_SIZE² synthetic
     images, with its optimizer, under ``torch.use_deterministic_algorithms``
     (which raises on an op with no deterministic CUDA implementation):
     each step's launches as ``per_step_launches``, finite losses; ms of
-    each step and peak memory.  The launches of both steps."""
+    each step and peak memory; with ``breakdown``, a third step's device
+    time by kernel class.  The launches of every step."""
     n = load_python_config(schedule_path)["train_batch_size"]
     optimizer_cfg, lr_config, _ = schedule_cfg(schedule_path)
     state = create_train_state(model, optimizer_cfg, lr_config)
@@ -2907,6 +2985,9 @@ def deterministic_amp_steps(device, model, schedule_path, layers, resizes,
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 per_step.append({k: v - counts[k]
                                  for k, v in step_counts(amp=True).items()})
+            if breakdown:
+                print_breakdown(f"{what} deterministic amp step",
+                                lambda: step(x, gt, generator))
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
@@ -2960,6 +3041,163 @@ def pyramid_phase(device):
                              device, model, schedule_path, layers, resizes,
                              what))
         del model
+    return out
+
+
+def table_cost(device):
+    """BEiT-B's per-layer table work at 640² under grad, on the card: the
+    port's bicubic resample (two matrix products) against
+    ``F.interpolate``'s bicubic, and the gather of the (1601, 1601, 12) bias
+    with its backward (``index_put_`` with accumulate), with deterministic
+    algorithms off and on; whether ``F.interpolate``'s bicubic backward
+    has a deterministic implementation (it raises under the flag if not).
+    Forward + backward ms (median of 20, CUDA events)."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    field = torch.randn(BEIT_TABLE_FIELD, device=device, generator=gen,
+                        requires_grad=True)
+    rows = BEIT_TABLE_GRID[0] * BEIT_TABLE_GRID[1] + 3
+    table = torch.randn(rows, BEIT_TABLE_FIELD[1], device=device,
+                        generator=gen, requires_grad=True)
+    index = torch.randint(0, rows, (BEIT_TOKENS, BEIT_TOKENS), device=device,
+                          generator=gen)
+    grad = torch.randn(BEIT_TOKENS, BEIT_TOKENS, BEIT_TABLE_FIELD[1],
+                       device=device, generator=gen)
+
+    def resample(fn):
+        def run():
+            with torch.enable_grad():
+                fn(field).square().sum().backward()
+        return run
+
+    def gather():
+        with torch.enable_grad():
+            table[index].backward(grad)
+
+    out = {}
+    try:
+        for mode in (False, True):
+            torch.use_deterministic_algorithms(mode)
+            key = "deterministic" if mode else "default"
+            out[f"port_bicubic_ms_{key}"] = cuda_ms(resample(
+                lambda f: resize_ops.resize(f, BEIT_TABLE_GRID,
+                                            mode="bicubic",
+                                            align_corners=False)))
+            out[f"gather_fwd_bwd_ms_{key}"] = cuda_ms(gather)
+            try:
+                out[f"interpolate_bicubic_ms_{key}"] = cuda_ms(resample(
+                    lambda f: F.interpolate(f, BEIT_TABLE_GRID,
+                                            mode="bicubic",
+                                            align_corners=False)))
+            except RuntimeError as err:  # the measurement: it has none
+                out[f"interpolate_bicubic_ms_{key}"] = None
+                out["interpolate_bicubic_deterministic_error"] = str(
+                    err).splitlines()[0][:160]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print("beit table cost: " + json.dumps(out), flush=True)
+
+
+def backbone_cli_phase(device):
+    """The train CLI on UPerNet-BEiT-B with the BEiT fine-tuning schedule as
+    it is (amp, deterministic, AdamW with its param groups) for one epoch
+    of CLI_TRAIN_STEPS steps on the Kvasir-shaped synthetic dataset of
+    phase 17, then the val CLI on its ``best.pth`` with ``--amp`` (mIoU as
+    the train run's); the optimizer state in ``last.pth`` holds the param
+    groups.  The launches of each."""
+    schedule = load_python_config(BEIT_SCHEDULE)
+    n, n_val = schedule["train_batch_size"], schedule["val_batch_size"]
+    if not (schedule["amp"] and schedule["deterministic"]):
+        raise AssertionError("the BEiT schedule no longer sets amp and "
+                             "deterministic")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_beit_cli_"))
+    try:
+        dataset_cfg = tmp / "kvasir_shaped_synthetic.py"
+        dataset_cfg.write_text(CLI_DATASET.format(
+            train=n * CLI_TRAIN_STEPS, val=n_val * CLI_VAL_BATCHES,
+            size=AUG_SIZE, train_yaml=TRAIN_TRANSFORM, val_yaml=VAL_TRANSFORM))
+        work = tmp / "runs"
+        common = ["--network-cfg", str(BEIT_CONFIG), "--dataset-cfg",
+                  str(dataset_cfg), "--work-dir", str(work), "--device",
+                  str(device)]
+        expected = {k: CLI_TRAIN_STEPS * per_step_launches(
+            k, True, 0, UPERNET_RESIZES) for k in step_counts(amp=True)}
+        expected.update(logits=2 * CLI_VAL_BATCHES, labels=0)
+        train, best = cli_train(common, work, expected, config=BEIT_CONFIG,
+                                schedule=BEIT_SCHEDULE, what="beit cli")
+        groups = load_file(work / "train" / "exp" / "weights" / "last.pth")[
+            "train_state"]["optimizer"]["param_groups"]
+        if len(groups) <= 4 or len({g["lr_mult"] for g in groups}) <= 4:
+            raise AssertionError(f"beit cli: {len(groups)} param groups in "
+                                 f"last.pth")
+        print("beit cli param groups: " + json.dumps(dict(
+            groups=len(groups), lr_mults=sorted({g["lr_mult"]
+                                                 for g in groups}))),
+              flush=True)
+        val = cli_validate(common, work, best, n_val, modes=VAL_MODES[:1],
+                           label="beit cli")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        amp_policy(False)
+    return dict(train=train, val=val["amp"])
+
+
+def backbone_phase(device):
+    """Phase 20, UPerNet's backbone family at full width (BACKBONE_CASES):
+    each served at PYRAMID_BATCH x PYRAMID_IMAGE_SIZE² in float32 (held
+    against the port on the CPU), validated over two val batches (K1 on
+    both heads), two amp train steps under deterministic algorithms; the
+    table cost of BEiT-B; one float32 step of Swin-T and of BEiT-B (its
+    schedule's param groups) against float64 on the CPU; the BEiT CLIs.
+    The launches of each path, per model."""
+    out = {}
+    for what, config, schedule_path in BACKBONE_CASES:
+        t0 = time.perf_counter()
+        model = init_model(config, device=device)
+        if attention_layers(model) != 0:
+            raise AssertionError(f"{what}: flash attention layers")
+        randomize_(model, seed=0)
+        x_nchw, row = serve(model, False, PYRAMID_BATCH, PYRAMID_IMAGE_SIZE,
+                            0, what)
+        print(f"{what} slice: " + json.dumps(row), flush=True)
+        print_breakdown(what, lambda: model.inference(x_nchw))
+        cpu_agreement_phase(model, x_nchw, 320, 320, what)
+        n_val = load_python_config(schedule_path)["val_batch_size"]
+        _, x, masks = synthetic_batch(device, 2 * n_val, PYRAMID_IMAGE_SIZE)
+        gt = torch.from_numpy(masks).to(device)
+        validate = validate_batches(
+            TrainState(model, None), [(x[i:i + n_val], gt[i:i + n_val], {})
+                                      for i in (0, n_val)],
+            "fp32", what=f"{what} validate")
+        del x, gt, x_nchw
+        out[what] = dict(serve=row["launches"], validate=validate,
+                         train=deterministic_amp_steps(
+                             device, model, schedule_path, 0,
+                             UPERNET_RESIZES, what, breakdown=True))
+        del model
+        torch.cuda.empty_cache()
+        print(f"{what}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    table_cost(device)
+    expected = {k: per_step_launches(k, False, 0, UPERNET_RESIZES)
+                for k in step_counts()}
+    patches = (mock.patch.object(LayerNorm, "forward",
+                                 layer_norm_in_input_dtype),)
+    for what, config, schedule, hold in (
+            ("swin-t", SWIN_CONFIG, SCHEDULE, True),
+            ("beit-b", BEIT_CONFIG, BEIT_SCHEDULE, False)):
+        model, x, gt = agreement_inputs(config, BACKBONE_AGREE_BATCH,
+                                        BACKBONE_AGREE_SIZE)
+        train_agreement(device, f"upernet_{what} train step", model, x, gt,
+                        patches, expected, schedule=schedule,
+                        hold_updates=hold, run_own=False)
+        del model
+    print(f"table cost and agreement steps: {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    t0 = time.perf_counter()
+    out["cli"] = backbone_cli_phase(device)
+    print(f"beit clis: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -3049,6 +3287,8 @@ def main():
     cli, cli_instances = cli_phase(device)
     segformer = segformer_phase(device)
     pyramid = pyramid_phase(device)
+    backbones = backbone_phase(device)
+    backbone_cli = backbones.pop("cli")
     # the flagship's evaluation paths: validation in float32 and under amp
     # (on ready batches and through the val pipeline), TTA in float32; the
     # new heads' validation (SegFormer's through the val pipeline)
@@ -3056,11 +3296,14 @@ def main():
                   deeplab_amp["validate"], fused["validate"],
                   fused_amp["validate"], segformer["train"]["validate"],
                   segformer["train_amp"]["validate"],
-                  *(p["validate"] for p in pyramid.values()))
-    # the new paths' serving (the evaluator) and the SegFormer CLIs
+                  *(p["validate"] for p in pyramid.values()),
+                  *(p["validate"] for p in backbones.values()))
+    # the new paths' serving (the evaluator) and the SegFormer and BEiT CLIs
     new_serving = (segformer["serve"], segformer["serve_amp"],
-                   *(p["serve"] for p in pyramid.values()))
-    segformer_cli = (segformer["cli"]["train"], segformer["cli"]["val"])
+                   *(p["serve"] for p in pyramid.values()),
+                   *(p["serve"] for p in backbones.values()))
+    segformer_cli = (segformer["cli"]["train"], segformer["cli"]["val"],
+                     backbone_cli["train"], backbone_cli["val"])
     # every confusion instance of a main path was held against the plain
     # version in the kernel phase
     path_instances = {*instances, *setr_launches["confusion_instances"],
@@ -3092,12 +3335,14 @@ def main():
                       and r["dtype"] == "bfloat16")
     setr_bf16_row = flash_rows[1]
     # the launches of each flash and resize-backward counter on the new
-    # paths (phases 18 and 19): the train steps (SegFormer float32 and amp,
-    # its train CLI, the pyramid heads' amp steps), the val CLI and the
-    # serving forwards
+    # paths (phases 18 to 20): the train steps (SegFormer float32 and amp,
+    # its train CLI, the pyramid heads' and the UPerNet backbones' amp
+    # steps, the BEiT train CLI), the val CLI and the serving forwards
     new_steps = (segformer["train"]["train"], segformer["train_amp"]["train"],
                  segformer["cli"]["train"],
-                 *(path["train"] for path in pyramid.values()))
+                 *(path["train"] for path in pyramid.values()),
+                 *(path["train"] for path in backbones.values()),
+                 backbone_cli["train"])
     new = {k: sum(path.get(k, 0) for path in new_steps)
            + segformer["cli"]["val"]["flash"].get(k, 0)
            for k in [*flash_attention.launches, *resize_backward.launches]}
@@ -3111,6 +3356,21 @@ def main():
     if not all(new.values()) or not new_k1:
         raise AssertionError(f"a kernel of the SegFormer and pyramid paths "
                              f"never launched: {new}, K1 {new_k1}")
+    # phase 20's own paths: K1 in serving, validation and the CLIs, the
+    # bf16 resize backward in every amp step
+    backbone_k1 = (sum(p["serve"]["confusion"] + p["validate"]["logits"]
+                       for p in backbones.values())
+                   + backbone_cli["train"]["logits"]
+                   + backbone_cli["val"]["logits"])
+    backbone_resize = (sum(p["train"]["resize_backward_bf16"]
+                           for p in backbones.values())
+                       + backbone_cli["train"]["resize_backward_bf16"])
+    print("upernet backbones launches: " + json.dumps(dict(
+        k1=backbone_k1, resize_backward_bf16=backbone_resize)), flush=True)
+    if not backbone_k1 or not backbone_resize:
+        raise AssertionError(f"a kernel of phase 20's paths never "
+                             f"launched: K1 {backbone_k1}, resize backward "
+                             f"{backbone_resize}")
 
     def mit_entries(kernel_rows, dtype, keys):
         """The MiT stage rows of one dtype, ``keys`` of each."""
@@ -3188,8 +3448,9 @@ def main():
                          "confusion.py:98",
         # the DeepLabV3 and SETR serving slices, the flagship's validation
         # (also through the val pipeline) and TTA, and the CLIs (K1) with
-        # the ragged evaluator path (K2); SegFormer's and the pyramid
-        # heads' serving and validation, and the SegFormer CLIs (K1)
+        # the ragged evaluator path (K2); SegFormer's, the pyramid heads'
+        # and the UPerNet backbones' serving and validation, and the
+        # SegFormer and BEiT CLIs (K1)
         "launches": sum(path["logits"] + path["labels"] for path in
                         (launches, setr_launches_k1, amp_launches_k1,
                          *eval_paths, cli)) + new_k1,
@@ -3300,7 +3561,8 @@ def main():
         "source": "image_segmentation_lab_tpu_torch/csrc/resize_backward.cu",
         "replaces": "image_segmentation_lab_tpu/utils/ops.py:74",
         # the SETR train steps, float32 and amp; SegFormer's train steps
-        # (float32, amp, the CLI) and the pyramid heads' amp steps
+        # (float32, amp, the CLI), the pyramid heads' and the UPerNet
+        # backbones' amp steps and the BEiT train CLI
         "launches": sum(counts[k] for counts in
                         (train_launches, amp_train_launches)
                         for k in RESIZE_KEY.values())

@@ -11,11 +11,14 @@ holds them, never by their shape (a square linear weight looks the same
 either way round):
 
 * ``nn.Conv2d`` weights: HWIO → OIHW;
+* ``nn.ConvTranspose2d`` weights: ``(kh, kw, out, in)`` → ``(in, out, kh,
+  kw)`` (the JAX module's rotation happens inside its call);
 * ``PointwiseLinear`` weights (a JAX 1 x 1 conv as a linear over
   channels-last tokens): ``(1, 1, in, out)`` → ``(out, in)``;
 * ``nn.Linear`` weights: ``(in, out)`` → ``(out, in)``;
-* everything else (biases, norm affines and statistics, ViT's
-  ``cls_token`` and ``pos_embed``): unchanged.
+* everything else (biases, norm affines and statistics, the ViTs'
+  ``cls_token`` and ``pos_embed``, relative-position tables, BEiT's
+  ``q_bias``/``v_bias``, layer-scale ``gamma`` vectors): unchanged.
 
 The load is strict: every JAX leaf must be used and every port parameter
 and buffer filled (``num_batches_tracked`` has no JAX counterpart and is
@@ -48,6 +51,8 @@ def jax_name(torch_name: str) -> str:
 _LAYOUTS = {
     nn.Conv2d: (lambda a: a.transpose(3, 2, 0, 1),   # HWIO -> OIHW
                 lambda a: a.transpose(2, 3, 1, 0)),  # OIHW -> HWIO
+    nn.ConvTranspose2d: (lambda a: a.transpose(3, 2, 0, 1),  # (kh, kw, out,
+                         lambda a: a.transpose(2, 3, 1, 0)),  # in) <-> IOHW
     PointwiseLinear: (lambda a: a[0, 0].T,           # (1, 1, in, out)
                       lambda a: a.T[None, None]),    # (out, in)
     nn.Linear: (np.transpose, np.transpose),

@@ -1,5 +1,10 @@
-"""Adaptive average pooling (counterpart of ``ops/pooling.py``'s
-``adaptive_avg_pool2d``).
+"""Pooling on NCHW tensors (counterpart of ``ops/pooling.py``'s
+``adaptive_avg_pool2d`` and ``max_pool2d``).
+
+``max_pool2d`` pads each spatial axis by the JAX package's rule
+(``_pool_padding``: torch's, with ``ceil_mode``'s last window starting
+inside the left-padded input) with -inf, then takes ``F.max_pool2d``
+without padding.  ``F.max_pool2d`` is looked up at call time.
 
 ``adaptive_avg_pool2d(x, output_size)`` on an NCHW tensor: output bin ``i``
 of an axis of length ``n`` averages ``[floor(i*n/o), ceil((i+1)*n/o))``
@@ -25,12 +30,37 @@ from __future__ import annotations
 from typing import Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 IntPair = Union[int, Tuple[int, int]]
 
 
 def _pair(v: IntPair) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _pool_padding(size: int, k: int, s: int, p: int, ceil_mode: bool):
+    """The (lo, hi) padding of one axis for a pool of ``k``, stride ``s``,
+    padding ``p``: torch's output size, with the JAX package's rule."""
+    if ceil_mode:
+        out = -(-(size + 2 * p - k) // s) + 1
+        if (out - 1) * s >= size + p:
+            out -= 1
+    else:
+        out = (size + 2 * p - k) // s + 1
+    return p, max((out - 1) * s + k - size - p, 0)
+
+
+def max_pool2d(x: torch.Tensor, kernel_size: IntPair, stride: IntPair = None,
+               padding: IntPair = 0, ceil_mode: bool = False) -> torch.Tensor:
+    kh, kw = _pair(kernel_size)
+    sh, sw = _pair(stride if stride is not None else kernel_size)
+    ph, pw = _pair(padding)
+    top, bottom = _pool_padding(x.shape[2], kh, sh, ph, ceil_mode)
+    left, right = _pool_padding(x.shape[3], kw, sw, pw, ceil_mode)
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=float("-inf"))
+    return F.max_pool2d(x, (kh, kw), (sh, sw))
 
 
 def bin_matrix(size: int, out: int, device=None) -> torch.Tensor:

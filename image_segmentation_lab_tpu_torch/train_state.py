@@ -65,11 +65,13 @@ class TrainState:
 def create_train_state(model: nn.Module, optimizer_cfg: Dict,
                        lr_config: Optional[Dict] = None,
                        steps_per_epoch: int = 1) -> TrainState:
-    """Optimizer from ``optimizer_cfg`` over the trainable parameters and,
-    with ``lr_config``, its LR schedule over ``steps_per_epoch``."""
+    """Optimizer from ``optimizer_cfg`` over the trainable parameters (with
+    ``paramwise_cfg``, one param group per multiplier pair) and, with
+    ``lr_config``, its LR schedule over ``steps_per_epoch``."""
     model.train()
     optimizer = build_optimizer(
-        optimizer_cfg, [p for p in model.parameters() if p.requires_grad])
+        optimizer_cfg, [(name, p) for name, p in model.named_parameters()
+                        if p.requires_grad])
     scheduler = None
     if lr_config is not None:
         scheduler = build_from_cfg(lr_config, LR_SCHEDULER).torch_scheduler(

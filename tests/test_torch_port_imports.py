@@ -20,7 +20,9 @@ for name in names:
 assert len(names) > 20, names
 new = ("models.backbones.mit", "models.decode_heads.segformer_head",
        "models.decode_heads.psp_head", "models.decode_heads.uper_head",
-       "ops.pooling")
+       "ops.pooling", "models.backbones.swin", "models.backbones.convnext",
+       "models.backbones.beit", "models.backbones.mae",
+       "models.necks.featurepyramid", "core.optimizers.paramwise")
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 forbidden = ("jax", "flax", "optax", "orbax", "image_segmentation_lab_tpu",
