@@ -75,7 +75,8 @@ printing its own lines; any failure raises and the exit code is not 0:
    six upsamples in its train step, DeepLabV3's at 512² and 640² (the
    8x logits and the 1 x 1 ASPP image pool, wide tables), SegFormer-B2's
    at 16 x 640² (the head's 768 channels to 160², the logits to 640²) and
-   PSPNet's pyramid pooling (1 x 1 and 6 x 6 to 80²), in float32 and
+   PSPNet's pyramid pooling (1 x 1 and 6 x 6 to 80²) and Mask2Former's
+   pixel decoder at 8 x 640² (M2F_RESIZE_SHAPES), in float32 and
    bfloat16, and the rest of the pyramid heads' amp steps in bfloat16
    (PYRAMID_RESIZE_SHAPES); the bf16 result must be the kernel's float32 result rounded once and a second
    call the same bits; beside it ``F.interpolate``'s own backward
@@ -226,7 +227,29 @@ printing its own lines; any failure raises and the exit code is not 0:
    Adam's first update is about lr · sign(g)); the train CLI on
    UPerNet-BEiT-B with the BEiT schedule as it is for 3 steps (the param
    groups in ``last.pth``), then ``val.main --amp`` on its ``best.pth``
-   (mIoU within 0.05 of the train run's).
+   (mIoU within 0.05 of the train run's);
+21. the mask-classification family: Mask2Former-R50 at full width (100
+   queries, width 256, 9 decoder layers over 3 scales, FFN 2048, 12544
+   points a pair) served at 16 x 640² (bench.py's whole-image geometry) in
+   float32 and under amp (float32 probabilities: the head combines its
+   queries in float32), no flash launch, held against the port on the CPU
+   on a 320² window with the card's blocked maps; validated over two
+   batches of 8 (1 K1 launch a batch); 10 steps of ``train_one_epoch`` at
+   8 x 640² (bench.py's train geometry) under the SegFormer schedule's
+   AdamW (the kvasir SGD diverges here, MASK_TRAIN_SCHEDULE) from the
+   seeded default init, in float32, under amp, and under amp with
+   deterministic algorithms: 3 resize-backward launches a step in the
+   policy's dtype, the auction's ms, rounds and host synchronisations a
+   step, the loss points' ms a step, peak memory and a breakdown; one
+   float32 step at 2 x 256² against float64 on the CPU on the card's
+   branches, assignments, loss points and blocked maps, and the auction on
+   the CPU on the step's cost matrices equal to the card's; the train CLI
+   on Mask2Former-R50 for 3 steps, then ``val.main --amp --panoptic
+   --instances --score`` (mIoU as the train run's; PQ/SQ/RQ, mask AP,
+   ``instances.json``) and ``val.main --panoptic --tta`` at thresholds 0
+   on its ``best.pth`` and on a seeded checkpoint (there at least one kept
+   segment and one exported instance); MaskFormer-R50 and Mask2Former-Swin-T served at 8 x 512²,
+   each held against the CPU on a 320² window.
 
 Kernel times: the wrapper's median of 20 calls by CUDA events and the
 kernel's own device time from ``torch.profiler`` (for SDPA's forward, of
@@ -276,8 +299,8 @@ from image_segmentation_lab_tpu_torch.core.builder import (LR_SCHEDULER,
                                                           build_from_cfg)
 from image_segmentation_lab_tpu_torch.core.evaluation import SegEvaluator
 from image_segmentation_lab_tpu_torch.core.fileio import load_python_config
-from image_segmentation_lab_tpu_torch.core.initialize.checkpoint import \
-    load_file
+from image_segmentation_lab_tpu_torch.core.initialize.checkpoint import (
+    load_file, save_checkpoint)
 from image_segmentation_lab_tpu_torch.core.inference import (inference_model,
                                                              init_model)
 from image_segmentation_lab_tpu_torch.core.mixed_precision import (
@@ -286,8 +309,10 @@ from image_segmentation_lab_tpu_torch.data import transforms as aug
 from image_segmentation_lab_tpu_torch.data.pipeline import Pipeline
 from image_segmentation_lab_tpu_torch.models.backbones import mit, vit
 from image_segmentation_lab_tpu_torch.models.basic import LayerNorm
+from image_segmentation_lab_tpu_torch.models.decode_heads import (
+    Mask2FormerHead, MaskFormerHead)
 from image_segmentation_lab_tpu_torch.ops import (confusion, flash_attention,
-                                                  resize_backward)
+                                                  matching, resize_backward)
 from image_segmentation_lab_tpu_torch.train_state import (
     TrainState, binarize_channels, create_train_state, head_threshold,
     make_eval_step, make_train_step, make_tta_step)
@@ -529,6 +554,42 @@ BACKBONE_AGREE_BATCH, BACKBONE_AGREE_SIZE = 2, 224
 # gathered by a (1601, 1601) index from 79² + 3 rows
 BEIT_TABLE_FIELD, BEIT_TABLE_GRID = (1, 12, 27, 27), (79, 79)
 BEIT_TOKENS = 1601
+# phase 21, mask classification: Mask2Former-R50 serving at bench.py's
+# whole-image geometry (16 x 640²), training at its train geometry (8 x
+# 640²) under the kvasir schedule, validation over two batches of 8, the
+# float64 agreement step at 2 x 256²; MaskFormer-R50 and Mask2Former-Swin-T
+# served at 8 x 512².  Each train step's bilinear resizes whose backward
+# runs: the pixel decoder's three top-down upsamples (the semantic logits'
+# resize to the labels feeds only the accuracy, and the blocked maps' level
+# resizes take no gradient)
+MASK2FORMER_CONFIG = ROOT / "configs/network/maskformer/mask2former_r50.py"
+MASK_SERVE_CONFIGS = [
+    ("maskformer_r50", ROOT / "configs/network/maskformer/maskformer_r50.py"),
+    ("mask2former_swin-t",
+     ROOT / "configs/network/maskformer/mask2former_swin-t.py")]
+M2F_SERVE_BATCH, M2F_SERVE_SIZE = 16, 640
+M2F_TRAIN_BATCH, M2F_TRAIN_SIZE = 8, 640
+M2F_VAL_BATCH = 8
+M2F_AGREE_BATCH, M2F_AGREE_SIZE = 2, 256
+MASK_SERVE_BATCH, MASK_SERVE_SIZE = 8, 512
+M2F_RESIZES = 3
+# those three upsamples at M2F_TRAIN_BATCH, on the pixel decoder's 256
+# channels (the last two are also SETR's)
+M2F_RESIZE_SHAPES = [((M2F_TRAIN_BATCH, 256, s, s), (2 * s, 2 * s))
+                     for s in (M2F_TRAIN_SIZE // 32, M2F_TRAIN_SIZE // 16,
+                               M2F_TRAIN_SIZE // 8)]
+# the 10-step loop's optimizer: under the kvasir SGD (lr 0.01, momentum
+# 0.9) the full-width Mask2Former diverges from its default init within a
+# few steps (loss 85 -> 141 -> 853 -> 1363 -> 1.8e9 -> 6e28 -> nan on the
+# card), and a non-finite cost leaves the auction bidding to max_iters.
+# The JAX package diverges the same way from the same weights (its losses
+# and the port's agree step for step while both grow 10⁴-fold in four
+# steps: tests/test_torch_port_maskformer.py, the slow
+# test_kvasir_sgd_diverges_as_in_the_jax_package).  The SegFormer
+# schedule's AdamW (the transformer heads' optimizer of this repo) trains
+# it.  The agreement step and the train CLI keep the kvasir schedule: one
+# to three steps stay finite
+MASK_TRAIN_SCHEDULE = ROOT / "configs/schedule/segformer_schedule.py"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
@@ -999,7 +1060,7 @@ def randomize_(model, seed):
                 if m.bias is not None:
                     fill(m.bias, -0.1, 0.1)
         for head in (model.decode_head, model.auxiliary_head):
-            if head is not None:
+            if getattr(head, "conv_seg", None) is not None:
                 unit_gain(head.conv_seg.weight)
 
 
@@ -1134,17 +1195,18 @@ def print_breakdown(what, fn):
         top_kernels=[[name[:90], ms] for name, ms in top])), flush=True)
 
 
-def serve(model, amp, batch, size, layers, what):
+def serve(model, amp, batch, size, layers, what, out_dtype=None):
     """Serving under the float32 or (``amp``) the bf16 policy: 8 forwards
     of ``batch`` synthetic ``size``² images through ``inference_model``,
     ``model.inference`` and ``SegEvaluator``, with exactly ``layers``
     launches per forward of the policy's flash forward kernel (and as many
-    splits in float32) and none of the other one.  The batch, the latency,
-    the launches, the peak memory and the metrics."""
+    splits in float32) and none of the other one; the probabilities in
+    ``out_dtype`` (by default the policy's).  The batch, the latency, the
+    launches, the peak memory and the metrics."""
     x, x_nchw, masks = synthetic_batch(next(model.parameters()).device,
                                        batch, size)
     shape = (batch, size, size)
-    dtype = torch.bfloat16 if amp else torch.float32
+    dtype = out_dtype or (torch.bfloat16 if amp else torch.float32)
     forwards = 0
 
     def serve():
@@ -1235,11 +1297,17 @@ def amp_slice_phase(model, backbone, batch, size, layers, what):
 
 
 def cpu_agreement_phase(model, x_nchw, h, w, what):
+    """One window on the card and on the CPU at the slice tolerance; the
+    CPU takes the card's blocked maps of a masked attention
+    (``MaskBranches``)."""
     window = x_nchw[:1, :, :h, :w]
+    record = MaskBranches()
     with torch.no_grad():
-        gpu = model.encode_decode(window).cpu().numpy()
-        cpu = copy.deepcopy(model).cpu().encode_decode(
-            window.cpu()).numpy()
+        with record.recording():
+            gpu = model.encode_decode(window).cpu().numpy()
+        with record.replaying():
+            cpu = copy.deepcopy(model).cpu().encode_decode(
+                window.cpu()).numpy()
     np.testing.assert_allclose(gpu, cpu, rtol=RTOL, atol=ATOL)
     mism = gpu.argmax(1) != cpu.argmax(1)
     if mism.any():  # only genuine ties may differ
@@ -1401,14 +1469,15 @@ def resize_backward_phase(device, l2_flush):
     """The resize backward kernel against its plain version (the same
     bits), its own float32 result rounded once (bf16) and its second call
     (the same bits), at each shape of SETR's, DeepLabV3's and SegFormer's
-    train steps in both dtypes and of the pyramid heads' amp steps in bf16;
+    train steps and Mask2Former's pixel decoder in both dtypes and of the
+    pyramid heads' amp steps in bf16;
     times of the kernel, the plain version and ``F.interpolate``'s own
     backward."""
     gen = torch.Generator(device=device).manual_seed(3)
     rows = []
     both = dict.fromkeys((*SETR_RESIZES, *DEEPLAB_RESIZES,
                           *DEEPLAB_RESIZES_640, *SEGFORMER_RESIZE_SHAPES,
-                          *PSPNET_RESIZE_SHAPES))
+                          *PSPNET_RESIZE_SHAPES, *M2F_RESIZE_SHAPES))
     for (n, c, h, w), size in (*both, *dict.fromkeys(PYRAMID_RESIZE_SHAPES)):
         for dtype in ((torch.float32, torch.bfloat16)
                       if ((n, c, h, w), size) in both else (torch.bfloat16,)):
@@ -1735,7 +1804,8 @@ def replayed_branches(branches):
 
 
 def train_agreement(device, what, model, x, gt, patches, expected,
-                    schedule=SCHEDULE, hold_updates=True, run_own=True):
+                    schedule=SCHEDULE, hold_updates=True, run_own=True,
+                    card_context=contextlib.nullcontext):
     """One train step of ``model`` (on the CPU) from the same weights on
     the card, in float32, which must launch the ``expected`` kernels
     (``step_counts()``), and twice on the CPU in float64 under
@@ -1752,14 +1822,16 @@ def train_agreement(device, what, model, x, gt, patches, expected,
     Without ``hold_updates`` (an Adam-family first step, whose update is
     about ``lr · sign(g)``, so a gradient within rounding of 0 may flip
     it) the parameters after the update are reported, not held.  Without
-    ``run_own`` the float64 step on its own branches is skipped."""
+    ``run_own`` the float64 step on its own branches is skipped.
+    ``card_context()`` is entered around the card's step (to record what
+    the ``patches`` replay)."""
     gpu_model = copy.deepcopy(model).to(device)
     own_model = copy.deepcopy(model).double() if run_own else None
     before = {k: t.double() for k, t in snapshot(model).items()}
     ref_model = model.double()
     reset_counts()
     card_branches, own_branches = [], []
-    with recorded_branches(card_branches):
+    with recorded_branches(card_branches), card_context():
         gpu_loss, lr_err = one_train_step(gpu_model, x, gt, device, schedule)
     torch.cuda.synchronize()
     launches = step_counts()
@@ -3201,6 +3273,364 @@ def backbone_phase(device):
     return out
 
 
+class MaskBranches:
+    """The discrete choices of a mask-classification forward or step: the
+    auction's assignments (with their cost matrices), the loss points and
+    the masked attention's blocked maps.  ``recording()`` keeps them (on
+    the CPU) as the card makes them; ``replaying()`` hands them out in the
+    same order instead of computing them, as ``replayed_branches`` does
+    for ReLUs: a blocked-map logit or a cost within rounding of a tie
+    would take the other branch in float64."""
+
+    def __init__(self):
+        self.auctions, self.points, self.blocked = [], [], []
+
+    def _patches(self, auction, points, blocked):
+        return (mock.patch.object(matching, "auction_assignment", auction),
+                mock.patch.object(MaskFormerHead, "_loss_points", points),
+                mock.patch.object(Mask2FormerHead, "_attn_blocked", blocked))
+
+    @contextlib.contextmanager
+    def recording(self):
+        auction = matching.auction_assignment
+        points = MaskFormerHead._loss_points
+        blocked = Mask2FormerHead._attn_blocked
+
+        def rec_auction(cost, valid, **kwargs):
+            col, owner = auction(cost, valid, **kwargs)
+            self.auctions.append(tuple(t.cpu() for t in
+                                       (cost, valid, col, owner)))
+            return col, owner
+
+        def rec_points(head, maps):
+            self.points.append(points(head, maps))
+            return self.points[-1]
+
+        def rec_blocked(head, emb, feat):
+            self.blocked.append(blocked(head, emb, feat))
+            return self.blocked[-1]
+
+        with contextlib.ExitStack() as stack:
+            for patch in self._patches(rec_auction, rec_points,
+                                       rec_blocked):
+                stack.enter_context(patch)
+            yield
+        self.points = [t.cpu() for t in self.points]
+        self.blocked = [t.cpu() for t in self.blocked]
+
+    @contextlib.contextmanager
+    def replaying(self):
+        auctions, points = iter(self.auctions), iter(self.points)
+        blocked = iter(self.blocked)
+
+        def rep_auction(cost, valid, **kwargs):
+            _, _, col, owner = next(auctions)
+            return col.to(cost.device), owner.to(cost.device)
+
+        with contextlib.ExitStack() as stack:
+            for patch in self._patches(
+                    rep_auction,
+                    lambda head, maps: next(points).to(maps.device),
+                    lambda head, emb, feat: next(blocked).to(emb.device)):
+                stack.enter_context(patch)
+            yield
+        for left in (auctions, points, blocked):
+            if next(left, None) is not None:
+                raise AssertionError("the replay took fewer choices than "
+                                     "the recording")
+
+
+@contextlib.contextmanager
+def mask_step_timers(times):
+    """Each auction call and each ``_loss_points`` call (the point draws,
+    the uncertainty, the top-k) timed into ``times`` (synchronised)."""
+    auction, points = matching.auction_assignment, MaskFormerHead._loss_points
+    timed_points = timed_call(points, times["points"])
+    with mock.patch.object(matching, "auction_assignment",
+                           timed_call(auction, times["auction"])), \
+            mock.patch.object(MaskFormerHead, "_loss_points",
+                              lambda head, maps: timed_points(head, maps)):
+        yield
+
+
+def mask_train_steps(device, model, amp, deterministic, what):
+    """TRAIN_STEPS steps of ``train_one_epoch`` on one batch of
+    M2F_TRAIN_BATCH synthetic M2F_TRAIN_SIZE² images under
+    MASK_TRAIN_SCHEDULE's AdamW and warm-up (fresh state), float32 or under
+    amp, with
+    deterministic algorithms off or on: M2F_RESIZES resize-backward
+    launches a step in the policy's dtype and none of the other, no flash
+    launch, finite losses whose last three steps' mean is below the first
+    three's, moved parameters; ms a step (median of steps 2-10), the
+    auction's ms, rounds and host synchronisations a step, the loss
+    points' ms a step, peak memory, one step's breakdown."""
+    policy = "bf16" if amp else "fp32"
+    optimizer_cfg, lr_config, _ = schedule_cfg(MASK_TRAIN_SCHEDULE)
+    state = create_train_state(model, optimizer_cfg, lr_config)
+    step = make_train_step(state.model, state.optimizer, state.scheduler)
+    _, x, masks = synthetic_batch(device, M2F_TRAIN_BATCH, M2F_TRAIN_SIZE)
+    gt = torch.from_numpy(masks).to(device)
+    times = dict(step=[], auction=[], points=[])
+    losses = []
+    timed_step = timed_call(step, times["step"])
+
+    def logged_step(img, labels, generator):
+        log = timed_step(img, labels, generator)
+        losses.append(float(log["loss"]))
+        return log
+
+    before = {k: v for k, v in snapshot(model).items() if "weight" in k}
+    reset_counts()
+    for key in matching.stats:
+        matching.stats[key] = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.use_deterministic_algorithms(deterministic)
+    torch.backends.cudnn.deterministic = deterministic
+    generator = torch.Generator(device=device).manual_seed(0)
+    try:
+        with policy_scope(policy), mask_step_timers(times):
+            train_one_epoch(0, logged_step, state,
+                            [(x, gt, {})] * TRAIN_STEPS,
+                            generator=generator)
+        torch.cuda.synchronize()
+        launches = step_counts(amp)
+        stats = dict(matching.stats)
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        with policy_scope(policy):
+            print_breakdown(f"{what} step",
+                            lambda: step(x, gt, generator))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    want = {k: per_step_launches(k, amp, 0, M2F_RESIZES) * TRAIN_STEPS
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"{what}: launched {launches}, not {want}")
+    if not all(math.isfinite(v) for v in losses) or not (
+            statistics.mean(losses[-3:]) < statistics.mean(losses[:3])):
+        raise AssertionError(f"{what}: losses {losses}")
+    moved = sum(not torch.equal(model.state_dict()[k], v)
+                for k, v in before.items())
+    if moved < len(before) // 2:
+        raise AssertionError(f"{what}: {moved} of {len(before)} weights "
+                             f"moved")
+    steps = len(times["step"])
+    row = dict(batch=[M2F_TRAIN_BATCH, 3, M2F_TRAIN_SIZE, M2F_TRAIN_SIZE],
+               deterministic=deterministic, losses=losses,
+               ms_per_step=statistics.median(times["step"][1:]),
+               step_ms=times["step"],
+               auction_ms_per_step=sum(times["auction"]) / steps,
+               auction_calls_per_step=stats["calls"] / steps,
+               auction_rounds_per_step=stats["rounds"] / steps,
+               auction_syncs_per_step=stats["syncs"] / steps,
+               loss_points_ms_per_step=sum(times["points"]) / steps,
+               peak_memory_gb=peak, launches=launches)
+    print(f"{what}: " + json.dumps(row), flush=True)
+    return row
+
+
+def mask_train_agreement(device):
+    """One float32 train step of Mask2Former-R50 (12544 points a pair) at
+    M2F_AGREE_BATCH x M2F_AGREE_SIZE² on the card against float64 on the
+    CPU, as phase 10, there with the card's ReLU and max-pool branches and
+    its assignments, loss points and blocked maps (``MaskBranches``); then
+    the auction on the CPU on each cost matrix the card's step matched:
+    the card's assignment exactly."""
+    model, x, gt = agreement_inputs(MASK2FORMER_CONFIG, M2F_AGREE_BATCH,
+                                    M2F_AGREE_SIZE)
+    record = MaskBranches()
+    patches = (mock.patch.object(LayerNorm, "forward",
+                                 layer_norm_in_input_dtype),
+               record.replaying())
+    expected = {k: per_step_launches(k, False, 0, M2F_RESIZES)
+                for k in step_counts()}
+    train_agreement(device, "mask2former train step", model, x, gt, patches,
+                    expected, run_own=False, card_context=record.recording)
+    for cost, valid, col, owner in record.auctions:
+        got_col, got_owner = matching.auction_assignment(cost, valid)
+        if not (torch.equal(got_col, col) and torch.equal(got_owner, owner)):
+            raise AssertionError("the CPU's auction differs from the card's "
+                                 "on the step's costs")
+    print("mask2former auction card vs cpu: " + json.dumps(dict(
+        calls=len(record.auctions),
+        problems=[list(c.shape) for c, *_ in record.auctions],
+        assignments_equal=True)), flush=True)
+
+
+# every query competes and keeps its segment (thresholds 0), so the RLE
+# export, the AP evaluator and the PNGs of kept segments run on any weights
+MASK_THRESHOLDS = ["--object-mask-threshold", "0", "--overlap-threshold",
+                   "0"]
+MASK_VAL_MODES = (("amp", ["--amp", "--panoptic", "--instances", "--score",
+                           *MASK_THRESHOLDS], "make_eval_step"),
+                  ("tta", ["--panoptic", "--tta", *MASK_THRESHOLDS],
+                   "make_tta_eval_step"))
+
+
+def mask_val_row(run, instances):
+    """PQ/SQ/RQ, the per-class TP/FP/FN and the PNG count of the val run
+    directory ``run``; with ``instances`` the mask AP and the exported
+    instances."""
+    results = json.loads((run / "results.json").read_text())
+    pan = results["panoptic"]
+    per_class = pan["per_class"]
+    row = dict(PQ=pan["PQ"], SQ=pan["SQ"], RQ=pan["RQ"], TP=per_class["TP"],
+               FP=per_class["FP"], FN=per_class["FN"],
+               panoptic_pngs=len(list((run / "panoptic").iterdir())))
+    if instances:
+        ap = results["instance_ap"]
+        records = json.loads((run / "instances.json").read_text())
+        row.update(mAP=ap["mAP"], AP50=ap["AP50"], AP75=ap["AP75"],
+                   images=len(records),
+                   instances=sum(len(r["instances"]) for r in records))
+    return row
+
+
+def mask_cli_phase(device):
+    """The train CLI on Mask2Former-R50 with the kvasir schedule as it is
+    (amp, deterministic) for one epoch of CLI_TRAIN_STEPS steps on phase
+    17's Kvasir-shaped synthetic dataset, then the val CLI on its
+    ``best.pth`` with ``--amp --panoptic --instances --score`` (mIoU as
+    the train run's) and with ``--panoptic --tta``, both at thresholds 0,
+    and the same two runs on a seeded checkpoint: PQ/SQ/RQ, the mask AP,
+    ``instances.json``; on the seeded checkpoint at least one kept segment
+    and one exported instance.  The launches of each."""
+    schedule = flagship_schedule()
+    n, n_val = schedule["train_batch_size"], schedule["val_batch_size"]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mask_cli_"))
+    try:
+        dataset_cfg = tmp / "kvasir_shaped_synthetic.py"
+        dataset_cfg.write_text(CLI_DATASET.format(
+            train=n * CLI_TRAIN_STEPS, val=n_val * CLI_VAL_BATCHES,
+            size=AUG_SIZE, train_yaml=TRAIN_TRANSFORM,
+            val_yaml=VAL_TRANSFORM))
+        work = tmp / "runs"
+        common = ["--network-cfg", str(MASK2FORMER_CONFIG), "--dataset-cfg",
+                  str(dataset_cfg), "--work-dir", str(work), "--device",
+                  str(device)]
+        train, best = cli_train(common, work, dict(
+            logits=CLI_VAL_BATCHES, labels=0,
+            resize_backward_bf16=M2F_RESIZES * CLI_TRAIN_STEPS),
+            config=MASK2FORMER_CONFIG, what="mask2former cli")
+        val = cli_validate(common, work, best, n_val, modes=MASK_VAL_MODES,
+                           label="mask2former cli")
+        # the same val runs on a seeded checkpoint (randomize_: class
+        # logits of order one), whose queries are kept: the 3-step SGD
+        # model calls every query "no object", even at thresholds 0
+        seeded = tmp / "seeded.pth"
+        model = init_model(MASK2FORMER_CONFIG, device="cpu")
+        randomize_(model, seed=0)
+        save_checkpoint(model, seeded, metadata={"epoch": 0})
+        del model
+        for what, flags, _ in MASK_VAL_MODES:
+            reset_counts()
+            quiet_run(val_cli.main, common + [
+                "--checkpoint", str(seeded), "--batch-size", str(n_val),
+                "--num-workers", str(LOADER_WORKERS), "--name",
+                f"seeded_{what}"] + flags)
+            val[f"seeded_{what}"] = dict(confusion_counts(),
+                                         instances=dict(confusion.instances))
+            if val[f"seeded_{what}"]["logits"] != CLI_VAL_BATCHES:
+                raise AssertionError(f"mask2former cli val --{what} on the "
+                                     f"seeded checkpoint launched "
+                                     f"{val[f'seeded_{what}']}")
+        for what, *_ in MASK_VAL_MODES:
+            for name in (what, f"seeded_{what}"):
+                row = mask_val_row(work / "val" / name, what == "amp")
+                kept = sum(row["TP"]) + sum(row["FP"])
+                if (row["panoptic_pngs"] != n_val * CLI_VAL_BATCHES
+                        or name.startswith("seeded") and (
+                            not kept or row.get("instances", 1) == 0)):
+                    raise AssertionError(f"mask2former cli val --{name}: "
+                                         f"{row}")
+                print(f"mask2former cli val --{name} panoptic: "
+                      + json.dumps(row), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+        amp_policy(False)
+    return dict(train=train, val=val)
+
+
+def mask_classification_phase(device):
+    """Phase 21, the mask-classification family: Mask2Former-R50 served at
+    M2F_SERVE_BATCH x M2F_SERVE_SIZE² in float32 and under amp (float32
+    probabilities: the head combines its queries in float32), held against
+    the port on the CPU on a 320² window (with the card's blocked maps),
+    validated over two batches of M2F_VAL_BATCH (1 K1 launch a batch),
+    trained (from the seeded default init) at M2F_TRAIN_BATCH x
+    M2F_TRAIN_SIZE² in float32 and under amp with deterministic algorithms
+    off and on; the float64 agreement step;
+    the CLIs; MaskFormer-R50 and Mask2Former-Swin-T served at
+    MASK_SERVE_BATCH x MASK_SERVE_SIZE².  The launches of each path."""
+    t0 = time.perf_counter()
+    out = {}
+    model = init_model(MASK2FORMER_CONFIG, device=device)
+    randomize_(model, seed=0)
+    print("mask2former_r50 parameters: " + json.dumps(dict(
+        total=sum(p.numel() for p in model.parameters()),
+        decode_head=sum(p.numel() for p in model.decode_head.parameters()))),
+        flush=True)
+    for amp in (False, True):
+        what = "mask2former_r50" + (" amp" if amp else "")
+        x_nchw, row = serve(model, amp, M2F_SERVE_BATCH, M2F_SERVE_SIZE, 0,
+                            what, out_dtype=torch.float32)
+        print(f"{what} slice: " + json.dumps(row), flush=True)
+        with policy_scope("bf16" if amp else "fp32"):
+            print_breakdown(what, lambda: model.inference(x_nchw))
+        out["serve_amp" if amp else "serve"] = row["launches"]
+    cpu_agreement_phase(model, x_nchw, 320, 320, "mask2former_r50")
+    del x_nchw
+    _, x, masks = synthetic_batch(device, 2 * M2F_VAL_BATCH, M2F_SERVE_SIZE)
+    gt = torch.from_numpy(masks).to(device)
+    out["validate"] = validate_batches(
+        TrainState(model, None), [(x[i:i + M2F_VAL_BATCH],
+                                   gt[i:i + M2F_VAL_BATCH], {})
+                                  for i in (0, M2F_VAL_BATCH)],
+        "fp32", what="mask2former_r50 validate")
+    del x, gt
+    print(f"mask2former serving and validation: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    # the train steps from the seeded default init (under randomize_'s
+    # unit-gain linears the kvasir SGD diverges)
+    model = init_model(MASK2FORMER_CONFIG, device=device)
+    state = snapshot(model)
+    out["train"] = []
+    for amp, deterministic in ((False, False), (True, False), (True, True)):
+        model.load_state_dict(state)
+        out["train"].append(mask_train_steps(
+            device, model, amp, deterministic,
+            "mask2former_r50 train" + (" amp" if amp else "")
+            + (" deterministic" if deterministic else "")))
+    del model, state
+    torch.cuda.empty_cache()
+    print(f"mask2former train steps: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    mask_train_agreement(device)
+    print(f"mask2former agreement step: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    out["cli"] = mask_cli_phase(device)
+    print(f"mask2former clis: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for what, config in MASK_SERVE_CONFIGS:
+        model = init_model(config, device=device)
+        randomize_(model, seed=0)
+        x_nchw, row = serve(model, False, MASK_SERVE_BATCH, MASK_SERVE_SIZE,
+                            0, what)
+        print(f"{what} slice: " + json.dumps(row), flush=True)
+        cpu_agreement_phase(model, x_nchw, 320, 320, what)
+        out[what] = row["launches"]
+        del model, x_nchw
+        torch.cuda.empty_cache()
+    print(f"maskformer and swin serving: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing measured")
@@ -3289,6 +3719,7 @@ def main():
     pyramid = pyramid_phase(device)
     backbones = backbone_phase(device)
     backbone_cli = backbones.pop("cli")
+    mask = mask_classification_phase(device)
     # the flagship's evaluation paths: validation in float32 and under amp
     # (on ready batches and through the val pipeline), TTA in float32; the
     # new heads' validation (SegFormer's through the val pipeline)
@@ -3313,6 +3744,13 @@ def main():
                         for k in path["confusion_instances"]),
                       *(k for path in segformer_cli
                         for k in path["instances"])}
+    mask_serving = (mask["serve"], mask["serve_amp"],
+                    *(mask[what] for what, _ in MASK_SERVE_CONFIGS))
+    mask_cli = (mask["cli"]["train"], *mask["cli"]["val"].values())
+    path_instances |= {*mask["validate"]["instances"],
+                       *(k for path in mask_serving
+                         for k in path["confusion_instances"]),
+                       *(k for path in mask_cli for k in path["instances"])}
     if not path_instances <= set(held_instances):
         raise AssertionError(f"confusion instances of a main path that the "
                              f"kernel phase never held: "
@@ -3365,6 +3803,19 @@ def main():
     backbone_resize = (sum(p["train"]["resize_backward_bf16"]
                            for p in backbones.values())
                        + backbone_cli["train"]["resize_backward_bf16"])
+    # phase 21's paths: K1 in serving, validation and the CLIs, the resize
+    # backward in every train step (float32 and bf16) and the train CLI
+    mask_k1 = (sum(path["confusion"] for path in mask_serving)
+               + mask["validate"]["logits"]
+               + sum(path["logits"] for path in mask_cli))
+    mask_resize = {k: sum(row["launches"][k] for row in mask["train"])
+                   + mask["cli"]["train"].get(k, 0)
+                   for k in resize_backward.launches}
+    print("mask classification launches: " + json.dumps(dict(
+        k1=mask_k1, **mask_resize)), flush=True)
+    if not mask_k1 or not all(mask_resize.values()):
+        raise AssertionError(f"a kernel of phase 21's paths never launched: "
+                             f"K1 {mask_k1}, resize backward {mask_resize}")
     print("upernet backbones launches: " + json.dumps(dict(
         k1=backbone_k1, resize_backward_bf16=backbone_resize)), flush=True)
     if not backbone_k1 or not backbone_resize:
@@ -3453,7 +3904,7 @@ def main():
         # SegFormer and BEiT CLIs (K1)
         "launches": sum(path["logits"] + path["labels"] for path in
                         (launches, setr_launches_k1, amp_launches_k1,
-                         *eval_paths, cli)) + new_k1,
+                         *eval_paths, cli)) + new_k1 + mask_k1,
         "cli_launches": {"logits": cli["logits"], "labels": cli["labels"]},
         "max_abs_err": max(max(r["max_abs_err"], r["labels_max_abs_err"])
                            for r in rows),
@@ -3566,7 +4017,8 @@ def main():
         "launches": sum(counts[k] for counts in
                         (train_launches, amp_train_launches)
                         for k in RESIZE_KEY.values())
-                    + new["resize_backward"] + new["resize_backward_bf16"],
+                    + new["resize_backward"] + new["resize_backward_bf16"]
+                    + sum(mask_resize.values()),
         "max_abs_err": 0.0,  # phase 8b raises unless it gives plain's bits
         "ms": resize_row["ms"],
         "device_ms": resize_row["device_ms"],

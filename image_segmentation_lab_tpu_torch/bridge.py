@@ -16,9 +16,11 @@ either way round):
 * ``PointwiseLinear`` weights (a JAX 1 x 1 conv as a linear over
   channels-last tokens): ``(1, 1, in, out)`` → ``(out, in)``;
 * ``nn.Linear`` weights: ``(in, out)`` → ``(out, in)``;
-* everything else (biases, norm affines and statistics, the ViTs'
-  ``cls_token`` and ``pos_embed``, relative-position tables, BEiT's
-  ``q_bias``/``v_bias``, layer-scale ``gamma`` vectors): unchanged.
+* everything else (biases, norm affines and statistics, GroupNorm's too,
+  the ViTs' ``cls_token`` and ``pos_embed``, relative-position tables,
+  BEiT's ``q_bias``/``v_bias``, layer-scale ``gamma`` vectors, the mask
+  heads' ``query_embed``, ``query_feat`` and ``level_embed`` tables):
+  unchanged.
 
 The load is strict: every JAX leaf must be used and every port parameter
 and buffer filled (``num_batches_tracked`` has no JAX counterpart and is

@@ -36,6 +36,11 @@ def use_generator(generator: torch.Generator):
         _generator = previous
 
 
+def current_generator() -> Optional[torch.Generator]:
+    """The generator installed by ``use_generator``, or None outside it."""
+    return _generator
+
+
 def keep_mask(shape, keep: float, like: torch.Tensor) -> torch.Tensor:
     """Bernoulli(keep) mask of ``shape`` in ``like``'s dtype and device,
     drawn from the installed generator."""

@@ -5,9 +5,13 @@ On one card ``SyncBatchNorm`` is ``nn.BatchNorm2d`` (eps 1e-5, momentum
 registered as in the JAX package.  ``LayerNorm`` (alias ``LN``) normalises
 over the trailing dims in float32 and casts back, with the JAX package's
 eps of 1e-5 (upstream MMSeg's ViT uses 1e-6; the JAX package is the
-reference).
+reference).  ``GroupNorm`` (alias ``GN``) does the same per group of
+channels of an NCHW map: float32 statistics and affine, cast back to the
+input's dtype, also under autocast (where ``nn.GroupNorm`` would return
+float32); a float64 input stays float64.
 """
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -24,3 +28,13 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,
                             self.bias, self.eps).to(x.dtype)
+
+
+@NORMALIZATION.register("GroupNorm", aliases=("GN",))
+class GroupNorm(nn.GroupNorm):
+
+    def forward(self, x):
+        acc = torch.promote_types(x.dtype, torch.float32)
+        with torch.autocast(x.device.type, enabled=False):
+            return F.group_norm(x.to(acc), self.num_groups, self.weight,
+                                self.bias, self.eps).to(x.dtype)

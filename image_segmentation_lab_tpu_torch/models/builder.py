@@ -45,14 +45,19 @@ def infer_norm_abbr(class_name: str) -> str:
 def build_norm_layer(cfg: Dict, num_features: int,
                      postfix: Any = "") -> Tuple[str, Any]:
     """Build a norm layer, returning ``(name, layer)``; ``requires_grad``
-    freezes its affine parameters and ``eps`` defaults to 1e-5."""
+    freezes its affine parameters and ``eps`` defaults to 1e-5; GroupNorm
+    needs ``num_groups`` and takes the channels as ``num_channels``."""
     layer_type, cfg_ = _typed_cfg(cfg)
     norm_layer = NORMALIZATION.get(layer_type)
     assert isinstance(postfix, (int, str))
     name = infer_norm_abbr(norm_layer.__name__) + str(postfix)
     requires_grad = cfg_.pop("requires_grad", True)
     cfg_.setdefault("eps", 1e-5)
-    layer = norm_layer(num_features, **cfg_)
+    if name.startswith("gn"):
+        assert "num_groups" in cfg_, "GroupNorm cfg needs `num_groups`"
+        layer = norm_layer(num_channels=num_features, **cfg_)
+    else:
+        layer = norm_layer(num_features, **cfg_)
     for param in layer.parameters():
         param.requires_grad = requires_grad
     return name, layer

@@ -1,5 +1,7 @@
 from .aspp_head import ASPPHead  # noqa: F401
 from .fcn_head import FCNHead  # noqa: F401
+from .mask2former_head import Mask2FormerHead  # noqa: F401
+from .maskformer_head import MaskFormerHead  # noqa: F401
 from .psp_head import PPM, PSPHead  # noqa: F401
 from .segformer_head import SegFormerHead  # noqa: F401
 from .setr_up_head import SETRUPHead  # noqa: F401

@@ -19,8 +19,13 @@ and the losses cast them to float32.
 Test-time augmentation: ``forward_test`` routes one image (batch) to
 ``simple_test`` and a list of augmented views to ``batch_test`` (one
 ``simple_test`` per view, from view 0: the reference skipped it);
-``aug_test_logits`` averages the views' probabilities.  Panoptic and
-instance output are not ported yet.
+``aug_test_logits`` averages the views' probabilities.
+
+Mask-classification heads (MaskFormer, Mask2Former) add ``panoptic``,
+``panoptic_tta_probs`` and ``instances``: the head's per-query outputs at
+the input resolution (nearest upsampling by ``jax.image.resize``'s rule,
+``floor((i + 0.5) · in / out)`` in float32), which ``val.py --panoptic``
+and ``--instances`` encode; a dense head raises ``AttributeError``.
 """
 
 from __future__ import annotations
@@ -78,6 +83,26 @@ def stitch_windows(crop_logits, origins, h_crop: int, w_crop: int,
     return preds * torch.from_numpy(1.0 / count).to(preds.device)
 
 
+def nearest_upsample(x, size):
+    """``x (N, C, h, w)`` to ``size`` by ``jax.image.resize``'s nearest
+    rule: source ``floor((i + 0.5) · in / out)``, in float32."""
+    for axis, (n_in, n_out) in zip((2, 3), zip(x.shape[2:], size)):
+        if n_in != n_out:
+            src = np.floor((np.arange(n_out, dtype=np.float32)
+                            + np.float32(0.5)) * np.float32(n_in)
+                           / np.float32(n_out)).astype(np.int64)
+            x = x.index_select(axis, torch.from_numpy(src).to(x.device))
+    return x
+
+
+def _mask_head(head, method: str):
+    if not hasattr(head, method):
+        raise AttributeError(
+            f"{type(head).__name__} is a dense decode head: {method} needs "
+            f"a mask-classification head (MaskFormerHead/Mask2FormerHead)")
+    return getattr(head, method)
+
+
 @SEGMENTOR.register()
 class EncoderDecoder(nn.Module):
 
@@ -130,6 +155,44 @@ class EncoderDecoder(nn.Module):
             out = self.decode_head.forward_test(self.extract_feat(img))
             return resize(out, size=img.shape[2:], mode="bilinear",
                           align_corners=self.align_corners)
+
+    def panoptic(self, img, object_mask_threshold: float = 0.8,
+                 overlap_threshold: float = 0.8):
+        """``(query_id (N, H, W), labels (N, Q), keep (N, Q))`` of the
+        head's ``panoptic_map`` at the input resolution."""
+        panoptic_map = _mask_head(self.decode_head, "panoptic_map")
+        with compute_autocast(img.device.type):
+            query_id, labels, keep = panoptic_map(
+                self.extract_feat(img),
+                object_mask_threshold=object_mask_threshold,
+                overlap_threshold=overlap_threshold)
+        query_id = nearest_upsample(query_id[:, None], img.shape[2:])[:, 0]
+        return query_id, labels, keep
+
+    def panoptic_tta_probs(self, img, out_size=None, flip: bool = False):
+        """One TTA view's ``(probs (N, Q, K+1), mask_probs (N, Q, H, W))``
+        in the un-augmented frame: mask probabilities resized (bilinear)
+        to ``out_size`` (default: the view's size) and un-flipped; feed
+        the views' means to ``maskformer_head.panoptic_from_probs``."""
+        query_probs = _mask_head(self.decode_head, "query_probs")
+        with compute_autocast(img.device.type):
+            probs, mask_probs = query_probs(self.extract_feat(img))
+        size = tuple(out_size) if out_size is not None else img.shape[2:]
+        mask_probs = resize(mask_probs, size=size, mode="bilinear",
+                            align_corners=False)
+        if flip:
+            mask_probs = mask_probs.flip(3)
+        return probs, mask_probs
+
+    def instances(self, img, score_threshold: float = 0.0):
+        """``(labels (N, Q), scores (N, Q), masks (N, Q, H, W) bool)`` of
+        the head's ``instance_results`` at the input resolution; gated
+        queries have score 0."""
+        instance_results = _mask_head(self.decode_head, "instance_results")
+        with compute_autocast(img.device.type):
+            labels, scores, masks = instance_results(
+                self.extract_feat(img), score_threshold=score_threshold)
+        return labels, scores, nearest_upsample(masks, img.shape[2:])
 
     def forward_train(self, img, gt_semantic_seg, meta_infos=None,
                       rescale: bool = False):

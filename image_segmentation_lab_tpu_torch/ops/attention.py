@@ -21,6 +21,13 @@ before the product, outside autocast (a bf16 product under autocast would
 round the scores to bf16), so bf16 operands give exact float32 products
 with float32 sums.  Softmax in float32, the probabilities cast to v's
 dtype for the PV product.  A float64 input stays float64.
+
+The Mask2Former decoder's masked cross-attention is the same function with
+no bias and a per-image additive mask: the JAX ``CrossAttention`` (and its
+``chunked_softmax_attention``, a form of the same product that works
+round an XLA lowering) puts -1e30 on each blocked key's score, and a row
+that blocks every key attends to all of them.  The flash kernels take no
+mask, and the JAX head does not use its flash kernel either.
 """
 
 from __future__ import annotations
@@ -43,17 +50,20 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float, bias: torch.Tensor,
+                     scale: float, bias: Optional[torch.Tensor] = None,
                      mask: Optional[torch.Tensor] = None,
                      dropout: Optional[Callable] = None) -> torch.Tensor:
-    """``softmax(q kᵀ·scale + bias + mask) v`` with ``q/k/v (B, h, L, d)``,
-    ``bias (h, L, L)`` and ``mask (nW, L, L)`` shared by every ``nW``-th
-    row of B (``B = N·nW``); ``dropout`` acts on the probabilities."""
+    """``softmax(q kᵀ·scale + bias + mask) v`` with ``q (B, h, Lq, d)``,
+    ``k/v (B, h, Lk, d)``, ``bias (h, Lq, Lk)`` and ``mask (nW, Lq, Lk)``
+    shared by every ``nW``-th row of B (``B = N·nW``); ``dropout`` acts on
+    the probabilities."""
     acc = torch.promote_types(q.dtype, torch.float32)
     with torch.autocast(q.device.type, enabled=False):
         # the product's output is not saved for the backward: in place
         scores = torch.matmul(q.to(acc), k.to(acc).transpose(-2, -1))
-        scores = scores.mul_(scale).add_(bias.to(acc))
+        scores = scores.mul_(scale)
+        if bias is not None:
+            scores = scores.add_(bias.to(acc))
         if mask is not None:
             scores.unflatten(0, (-1, mask.shape[0])).add_(
                 mask[:, None].to(acc))

@@ -15,6 +15,17 @@ state it sets (determinism, seeds, the compute policy) is restored after.
   the parameters of an uninterrupted 2-epoch run within 1e-6; a train
   state that optax wrote raises ``SystemExit``; ``--auto-resume`` takes
   the newest ``exp``/``exp<N>`` run, never a sibling ``exp_ablation``.
+- ``val --panoptic --instances --score`` against the JAX package's val CLI
+  (the root ``val.py``, run in this process) on the same checkpoint and
+  split: the all-stuff PQ of the FCN run's ``best.pth`` (a dense head has
+  no instances: ``--instances`` raises in both), and on a seeded tiny
+  Mask2Former checkpoint the query-competition PQ tables, the instance AP
+  and ``instances.json`` (labels and RLE masks exactly, scores within
+  1e-5: they are rounded to 6 decimals); ``--panoptic --tta`` at scale
+  0.75 (the mask probabilities resized to the image, un-flipped and
+  averaged over both views before one query competition): the same PQ
+  table and PNGs.  The dense head's comparison is marked slow (a second
+  JAX val program, about 9 s of compiling).
 - Both CLIs stop (``SystemExit``) with no GPU unless ``--device cpu``, and
   on the flags that are not ported, naming their ROADMAP item.
 - ``inference_model`` on a PNG the port wrote, through the val YAML,
@@ -26,6 +37,7 @@ import json
 import os
 import pickle
 import random
+import sys
 
 import numpy as np
 import pytest
@@ -34,7 +46,8 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
-from torch_port_helpers import compile_quickly, init_jax  # noqa: E402
+from torch_port_helpers import (bridge, compile_quickly,  # noqa: E402
+                                init_jax)
 
 from image_segmentation_lab_tpu import train_state as jtrain  # noqa: E402
 from image_segmentation_lab_tpu.core import DATASET as JDATASET  # noqa: E402
@@ -299,9 +312,6 @@ def test_clis_stop_without_a_gpu_and_on_unported_flags(tmp_path,
             train.main(flag)
     with pytest.raises(SystemExit, match="orbax"):
         train.main(["--ckpt-backend", "orbax_async"])
-    for flag in ("--panoptic", "--instances"):
-        with pytest.raises(SystemExit, match="Queue 1 item 7"):
-            val.main(val_args + [flag, "--device", "cpu"])
     assert not list(tmp_path.iterdir())  # nothing written
     with pytest.raises(NotImplementedError, match="orbax"):
         checkpoint.save_checkpoint(torch.nn.Linear(1, 1), tmp_path / "x",
@@ -322,3 +332,166 @@ def test_float32_precision_turns_tf32_off():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = before
+
+
+# configs/network/maskformer/mask2former_r50.py cut to a depth-18 ResNetV1c
+# of stage widths 8-64, width 32, 8 queries over 2 decoder layers
+TINY_MASK2FORMER = """
+model = dict(
+    type='EncoderDecoder',
+    backbone=dict(type='ResNetV1c', depth=18, num_stages=4,
+                  out_indices=(0, 1, 2, 3), dilations=(1, 1, 1, 1),
+                  strides=(1, 2, 2, 2), stem_channels=8, base_channels=8,
+                  norm_cfg=dict(type='SyncBatchNorm', requires_grad=True)),
+    decode_head=dict(type='Mask2FormerHead', in_channels=[8, 16, 32, 64],
+                     in_index=(0, 1, 2, 3),
+                     input_transform='multiple_select', channels=32,
+                     feat_channels=32, num_queries=8, num_decoder_layers=2,
+                     num_heads=4, num_scales=3, feedforward_channels=64,
+                     mask_loss_type='ce', num_points=64, dropout_ratio=0.0,
+                     num_classes=2, align_corners=False),
+    train_cfg=dict(), test_cfg=dict(mode='whole'))
+"""
+
+
+JIT = jax.jit
+
+
+def quick_jit(fun=None, **kwargs):
+    """``jax.jit`` whose programs ``compile_quickly`` builds, one per
+    argument structure and shapes."""
+    if fun is None:
+        return lambda f: quick_jit(f, **kwargs)
+    jitted, compiled = JIT(fun, **kwargs), {}
+
+    def call(*args):
+        leaves, tree = jax.tree_util.tree_flatten(args)
+        key = (tree, tuple((np.shape(a), str(np.result_type(a)))
+                           for a in leaves))
+        if key not in compiled:
+            compiled[key] = compile_quickly(jitted, *args)
+        return compiled[key](*args)
+
+    return call
+
+
+def run_both_val_clis(monkeypatch, network, dataset, checkpoint, work, flags,
+                      variables=None):
+    """The port's val CLI and the JAX package's on the same arguments: each
+    run's directory.  The JAX CLI's programs are compiled as
+    ``compile_quickly`` compiles them; its init (whose values the
+    checkpoint replaces) is jitted, or with ``variables`` returns those
+    (the checkpoint's own: no program to trace for the train forward)."""
+    import val as jax_val  # the root val.py
+    monkeypatch.setattr(jax, "jit", quick_jit)
+    monkeypatch.setattr(
+        "image_segmentation_lab_tpu.utils.jit_init.jit_init_off_cpu",
+        quick_jit if variables is None else lambda f: lambda *a: variables)
+    argv = ["--network-cfg", str(network), "--dataset-cfg", str(dataset),
+            "--checkpoint", str(checkpoint), "--device", "cpu",
+            "--batch-size", "4", "--num-workers", "0", *flags]
+    assert val.main(argv + ["--work-dir", str(work / "port")]) == 0
+    monkeypatch.setattr(sys, "argv", ["val.py", *argv, "--work-dir",
+                                      str(work / "jax")])
+    # the JAX CLI would point JAX's compile cache at a directory of /tmp
+    monkeypatch.setattr("image_segmentation_lab_tpu.utils.compile_cache."
+                        "enable_compile_cache", lambda *a, **k: None)
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    assert jax_val.main() == 0
+    return [work / side / "val" / "exp" for side in ("port", "jax")]
+
+
+def assert_same_pngs(port, ref):
+    """The same 8 id2rgb PNG names in both directories, pixel for pixel."""
+    import cv2
+    pngs = sorted(p.name for p in port.iterdir())
+    assert len(pngs) == 8 and pngs == sorted(p.name for p in ref.iterdir())
+    for name in pngs:
+        np.testing.assert_array_equal(cv2.imread(str(port / name)),
+                                      cv2.imread(str(ref / name)),
+                                      err_msg=name)
+
+
+@pytest.mark.slow
+def test_dense_head_panoptic_matches_the_jax_cli(runs, monkeypatch,
+                                                  tmp_path):
+    """All-stuff panoptic of the FCN run's ``best.pth``: the same PQ table
+    and the same id2rgb PNGs; ``--instances`` needs a mask-classification
+    head in both packages."""
+    port, ref = run_both_val_clis(
+        monkeypatch, NETWORK, runs["root"] / "dataset.py",
+        runs["weights"]["half"] / "best.pth", tmp_path, ["--panoptic"])
+    got, want = (json.loads((run / "results.json").read_text())
+                 for run in (port, ref))
+    assert got["panoptic"] == want["panoptic"]
+    assert got["panoptic"]["per_class"]["TP"] != [0, 0]
+    assert_same_pngs(port / "panoptic", ref / "panoptic")
+    with pytest.raises(AttributeError, match="dense decode head"):
+        val.main(["--network-cfg", NETWORK, "--dataset-cfg",
+                  str(runs["root"] / "dataset.py"), "--checkpoint",
+                  str(runs["weights"]["half"] / "best.pth"), "--device",
+                  "cpu", "--num-workers", "0", "--instances", "--work-dir",
+                  str(tmp_path / "dense_instances")])
+
+
+@pytest.fixture(scope="module")
+def mask2former_checkpoint(runs):
+    """A tiny Mask2Former checkpoint of seeded JAX-side weights, written by
+    the port (JAX layout)."""
+    path = runs["root"] / "tiny_mask2former.py"
+    path.write_text(TINY_MASK2FORMER)
+    network = load_python_config(path)["model"]
+    variables = init_jax(jax_build(network), jnp.zeros((1, 160, 160, 3)),
+                         jnp.zeros((1, 160, 160), jnp.int32),
+                         method="forward_train", train=False)
+    from image_segmentation_lab_tpu_torch.models.builder import \
+        build_segmentor
+    model = bridge(build_segmentor(network), variables)
+    checkpoint.save_checkpoint(model, runs["root"] / "mask2former.pth",
+                               metadata={"epoch": 0})
+    return path, runs["root"] / "mask2former.pth", variables
+
+
+def test_mask2former_panoptic_and_instances_match_the_jax_cli(
+        runs, mask2former_checkpoint, monkeypatch, tmp_path):
+    network, ckpt, variables = mask2former_checkpoint
+    port, ref = run_both_val_clis(
+        monkeypatch, network, runs["root"] / "dataset.py", ckpt, tmp_path,
+        ["--panoptic", "--instances", "--score",
+         "--object-mask-threshold", "0.0", "--overlap-threshold", "0.0"],
+        variables)
+    got, want = (json.loads((run / "results.json").read_text())
+                 for run in (port, ref))
+    assert got["panoptic"] == want["panoptic"]
+    per_class = got["panoptic"]["per_class"]
+    assert sum(per_class["TP"]) + sum(per_class["FP"]) > 0  # segments kept
+    assert got["instance_ap"] == pytest.approx(want["instance_ap"],
+                                               rel=1e-6, nan_ok=True)
+    records, ref_records = (json.loads((run / "instances.json").read_text())
+                            for run in (port, ref))
+    assert [r["image"] for r in records] == [r["image"] for r in ref_records]
+    assert sum(len(r["instances"]) for r in records) > 0
+    for rec, ref_rec in zip(records, ref_records):
+        assert len(rec["instances"]) == len(ref_rec["instances"])
+        for a, b in zip(rec["instances"], ref_rec["instances"]):
+            assert a["label"] == b["label"]
+            assert a["segmentation"] == b["segmentation"]
+            assert abs(a["score"] - b["score"]) <= 1e-5
+
+
+def test_mask2former_panoptic_tta_matches_the_jax_cli(
+        runs, mask2former_checkpoint, monkeypatch, tmp_path):
+    """The view-averaged query competition: one scale (0.75, so the mask
+    probabilities are resized back to the image) and both flips."""
+    network, ckpt, variables = mask2former_checkpoint
+    port, ref = run_both_val_clis(
+        monkeypatch, network, runs["root"] / "dataset.py", ckpt, tmp_path,
+        ["--panoptic", "--tta", "--tta-scales", "0.75",
+         "--object-mask-threshold", "0.0", "--overlap-threshold", "0.0"],
+        variables)
+    got, want = (json.loads((run / "results.json").read_text())
+                 for run in (port, ref))
+    assert got["panoptic"] == want["panoptic"]
+    per_class = got["panoptic"]["per_class"]
+    assert sum(per_class["TP"]) + sum(per_class["FP"]) > 0
+    assert_same_pngs(port / "panoptic", ref / "panoptic")

@@ -951,3 +951,51 @@ def test_ppm_backward_under_deterministic_algorithms(cuda, monkeypatch):
         torch.use_deterministic_algorithms(False)
     assert torch.equal(grads[0], grads[1])
     torch.testing.assert_close(grads[0], grads[2], rtol=1e-4, atol=1e-6)
+
+
+def test_point_sample_backward_is_deterministic_on_the_card(cuda):
+    """``point_sample``'s backward (``torch.gather``'s) under
+    ``torch.use_deterministic_algorithms(True)``: it has an implementation
+    (``F.grid_sample``'s raises), the same bits on two calls, and the CPU's
+    gradient within float32 rounding; at the point path's shapes (one map
+    a row, 16 rows, 3 × 12544 points on a 160² map)."""
+    from image_segmentation_lab_tpu_torch.ops.point_sample import \
+        point_sample
+    gen = torch.Generator().manual_seed(case_seed("point_sample"))
+    feat = torch.randn(16, 1, 160, 160, generator=gen)
+    points = torch.rand(16, 3 * 12544, 2, generator=gen)
+    cot = torch.randn(16, 1, 3 * 12544, generator=gen)
+
+    def grad(device):
+        x = feat.to(device).requires_grad_(True)
+        with torch.enable_grad():
+            (point_sample(x, points.to(device)) * cot.to(device)).sum(
+            ).backward()
+        return x.grad
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        first, second = grad(cuda), grad(cuda)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.cpu(), grad("cpu"), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_auction_on_the_card_equals_the_cpu(cuda):
+    """The batched auction on the card against the same on the CPU: 80
+    seeded problems (10 predictions × 8 images, 2 targets of which some
+    invalid, 100 queries) and 8 with integer-valued ties: the same
+    assignments and owners."""
+    from image_segmentation_lab_tpu_torch.ops.matching import \
+        auction_assignment
+    gen = torch.Generator().manual_seed(case_seed("auction"))
+    cost = torch.rand(88, 2, 100, generator=gen) * 10
+    cost[80:] = torch.round(cost[80:])
+    valid = torch.rand(88, 2, generator=gen) < 0.8
+    col, owner = auction_assignment(cost.to(cuda), valid.to(cuda))
+    ref_col, ref_owner = auction_assignment(cost, valid)
+    assert torch.equal(col.cpu(), ref_col) and torch.equal(owner.cpu(),
+                                                           ref_owner)
+    assert bool((ref_col[valid] >= 0).all())

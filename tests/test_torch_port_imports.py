@@ -22,7 +22,11 @@ new = ("models.backbones.mit", "models.decode_heads.segformer_head",
        "models.decode_heads.psp_head", "models.decode_heads.uper_head",
        "ops.pooling", "models.backbones.swin", "models.backbones.convnext",
        "models.backbones.beit", "models.backbones.mae",
-       "models.necks.featurepyramid", "core.optimizers.paramwise")
+       "models.necks.featurepyramid", "core.optimizers.paramwise",
+       "models.decode_heads.maskformer_head",
+       "models.decode_heads.mask2former_head", "ops.matching",
+       "ops.point_sample", "core.evaluation.panoptic",
+       "core.evaluation.instances", "core.evaluation.instance_ap")
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 forbidden = ("jax", "flax", "optax", "orbax", "image_segmentation_lab_tpu",
