@@ -1,4 +1,5 @@
-"""ResNet / ResNetV1c backbones (counterpart of ``models/backbones/resnet.py``).
+"""ResNet / ResNetV1c / ResNetV1d backbones (counterpart of
+``models/backbones/resnet.py``).
 
 * ``BasicBlock`` (expansion 1) and ``Bottleneck`` (expansion 4, stride on
   the 3x3 conv for ``style='pytorch'``, on the first 1x1 for ``'caffe'``);
@@ -7,6 +8,9 @@
 * per-stage ``strides``/``dilations``, ``multi_grid`` on the last stage and
   ``contract_dilation`` (output stride 8 with strides (1, 2, 1, 1) and
   dilations (1, 1, 2, 4));
+* ``avg_down`` (V1d): a strided block's shortcut averages ``stride x
+  stride`` windows (``ops/pooling.avg_pool2d``, ``ceil_mode=True``,
+  ``count_include_pad=False``) before a stride-1 1 x 1 conv;
 * ``norm_eval`` keeps every batch norm on its running statistics;
 * default init: kaiming (fan_out) convs, unit norms, and with
   ``zero_init_residual`` the last norm of each block at zero, but only when
@@ -14,9 +18,8 @@
 
 Submodule names follow the JAX parameter tree: ``stem_<i>`` (here the
 ``stem`` list), ``layer<i>.blocks_<j>``, ``downsample_conv``/
-``downsample_bn``.  Frozen stages, ``avg_down`` (V1d), plugins and
-activation checkpointing are training features that later work ports; they
-raise here.
+``downsample_bn``.  Frozen stages, plugins and activation checkpointing are
+training features that later work ports; they raise here.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.registry_hub import BACKBONE
+from ...ops.pooling import avg_pool2d
 from ..builder import build_conv_layer, build_norm_layer
 from ..utils.res_layer import ResLayer
 
@@ -38,19 +42,24 @@ class _Block(nn.Module):
     expansion = 1
     last_norm = ""
 
-    def _build_downsample(self, conv_cfg, norm_cfg, inplanes, planes, stride):
+    def _build_downsample(self, conv_cfg, norm_cfg, inplanes, planes, stride,
+                          avg_down=False):
         self.has_downsample = stride != 1 or inplanes != planes * self.expansion
+        self.avg_stride = stride if avg_down and stride != 1 else 0
         if self.has_downsample:
             self.downsample_conv = build_conv_layer(
-                conv_cfg, inplanes, planes * self.expansion, 1, stride=stride,
-                bias=False)
+                conv_cfg, inplanes, planes * self.expansion, 1,
+                stride=1 if self.avg_stride else stride, bias=False)
             self.downsample_bn = build_norm_layer(
                 norm_cfg, planes * self.expansion)[1]
 
     def _residual(self, x, out):
         identity = x
+        if self.avg_stride:
+            identity = avg_pool2d(identity, self.avg_stride, self.avg_stride,
+                                  ceil_mode=True, count_include_pad=False)
         if self.has_downsample:
-            identity = self.downsample_bn(self.downsample_conv(x))
+            identity = self.downsample_bn(self.downsample_conv(identity))
         return F.relu(out + identity)
 
     def init_weights(self, generator):
@@ -66,7 +75,8 @@ class BasicBlock(_Block):
                  dilation: int = 1, style: str = "pytorch",
                  conv_cfg: Optional[Dict] = None,
                  norm_cfg: Optional[Dict] = None,
-                 zero_init_residual: bool = False):
+                 zero_init_residual: bool = False,
+                 avg_down: bool = False):
         super().__init__()
         self.zero_init_residual = zero_init_residual
         self.conv1 = build_conv_layer(conv_cfg, inplanes, planes, 3,
@@ -76,7 +86,8 @@ class BasicBlock(_Block):
         self.conv2 = build_conv_layer(conv_cfg, planes, planes, 3, padding=1,
                                       bias=False)
         self.bn2 = build_norm_layer(norm_cfg, planes, postfix=2)[1]
-        self._build_downsample(conv_cfg, norm_cfg, inplanes, planes, stride)
+        self._build_downsample(conv_cfg, norm_cfg, inplanes, planes, stride,
+                               avg_down)
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -91,7 +102,8 @@ class Bottleneck(_Block):
                  dilation: int = 1, style: str = "pytorch",
                  conv_cfg: Optional[Dict] = None,
                  norm_cfg: Optional[Dict] = None,
-                 zero_init_residual: bool = False):
+                 zero_init_residual: bool = False,
+                 avg_down: bool = False):
         super().__init__()
         if style not in ("pytorch", "caffe"):
             raise ValueError(f"unknown ResNet style {style!r}")
@@ -109,7 +121,8 @@ class Bottleneck(_Block):
                                       planes * self.expansion, 1, bias=False)
         self.bn3 = build_norm_layer(norm_cfg, planes * self.expansion,
                                     postfix=3)[1]
-        self._build_downsample(conv_cfg, norm_cfg, inplanes, planes, stride)
+        self._build_downsample(conv_cfg, norm_cfg, inplanes, planes, stride,
+                               avg_down)
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -157,7 +170,7 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in self.arch_settings:
             raise KeyError(f"invalid depth {depth} for resnet")
-        unported = dict(avg_down=avg_down, frozen_stages=frozen_stages >= 0,
+        unported = dict(frozen_stages=frozen_stages >= 0,
                         dcn=dcn is not None, plugins=plugins is not None,
                         with_cp=with_cp)
         if any(unported.values()):
@@ -199,7 +212,7 @@ class ResNet(nn.Module):
                 multi_grid=multi_grid if i == num_stages - 1 else None,
                 contract_dilation=contract_dilation,
                 block_kwargs=dict(
-                    style=style,
+                    style=style, avg_down=avg_down,
                     zero_init_residual=(zero_init_residual
                                         and pretrained is None
                                         and init_cfg is None))))
@@ -239,4 +252,14 @@ class ResNetV1c(ResNet):
 
     def __init__(self, **kwargs):
         kwargs.setdefault("deep_stem", True)
+        super().__init__(**kwargs)
+
+
+@BACKBONE.register()
+class ResNetV1d(ResNet):
+    """ResNet with the 3x3 deep stem and averaged shortcuts."""
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("deep_stem", True)
+        kwargs.setdefault("avg_down", True)
         super().__init__(**kwargs)

@@ -2,7 +2,9 @@
 ``models/backbones/vit.py``).
 
 * Tokens keep an ``(N, L, C)`` layout between blocks; the tapped
-  ``out_indices`` are returned as NCHW maps (one map, or a tuple).
+  ``out_indices`` are returned as NCHW maps (one map, or a tuple), or with
+  ``output_cls_token`` as ``(map, cls)`` pairs, ``cls`` the class token
+  ``(N, C)`` after the same block (DPT's readout).
 * Every attention call goes through ``ops/attention.py``: the flash kernel
   on a CUDA tensor, reading q, k and v in place from the qkv projection.
   Attention-probability dropout in training keeps a materialised score
@@ -16,8 +18,8 @@
 
 Arch table (ViT paper Table 1 + DeiT-Ti/S): tiny = 192 dims, 12 layers,
 3 heads; small = 384/12/6; base = 768/12/12; large = 1024/24/16.  The MoE
-FFN (``num_experts >= 2``), ``with_cp``, ``output_cls_token`` and
-``frozen_stages`` are not ported yet and raise.
+FFN (``num_experts >= 2``), ``with_cp`` and ``frozen_stages`` are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -134,7 +136,6 @@ class VisionTransformer(nn.Module):
                  moe_aux_loss_weight: float = 0.01):
         super().__init__()
         unported = dict(num_experts=num_experts >= 2, with_cp=with_cp,
-                        output_cls_token=output_cls_token,
                         frozen_stages=frozen_stages >= 0)
         if any(unported.values()):
             raise NotImplementedError(
@@ -155,7 +156,10 @@ class VisionTransformer(nn.Module):
         self.dims, self.depth = dims, depth
         self.out_ids = tuple(i % depth for i in out_indices)
         self.grid = pretrain_img_size // patch_size
+        if output_cls_token and not with_cls_token:
+            raise ValueError("output_cls_token requires with_cls_token")
         self.with_cls_token = with_cls_token
+        self.output_cls_token = output_cls_token
         self.final_norm = final_norm
         self.interpolate_mode = interpolate_mode
 
@@ -214,6 +218,8 @@ class VisionTransformer(nn.Module):
             if i == self.depth - 1 and self.final_norm:
                 x = self.norm1(x)
             if i in self.out_ids:
-                outs.append(x[:, lead:].reshape(N, gh, gw, self.dims)
-                            .permute(0, 3, 1, 2))
+                fmap = (x[:, lead:].reshape(N, gh, gw, self.dims)
+                        .permute(0, 3, 1, 2))
+                outs.append((fmap, x[:, 0]) if self.output_cls_token
+                            else fmap)
         return outs[0] if len(outs) == 1 else tuple(outs)

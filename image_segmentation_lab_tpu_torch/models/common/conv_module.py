@@ -3,14 +3,17 @@
 
 ``bias='auto'`` gives the conv a bias only when no norm follows.  The norm
 layer is stored under its abbreviated name (``bn`` for batch norms), as in
-the JAX parameter tree.  The JAX module's ``order``, ``padding_mode`` and
-spectral-norm options are used by no config of this slice and are not
-ported yet.
+the JAX parameter tree.  ``order`` arranges conv, norm and activation (DPT's
+residual units take ``('act', 'conv', 'norm')``); a norm before the conv
+normalises the input channels; an activation before the conv is not in
+place, as it would overwrite the module's input, which the caller keeps.
+The JAX module's ``padding_mode`` and spectral-norm options are used by no
+config and are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 from torch import nn
 
@@ -33,10 +36,16 @@ class ConvModule(nn.Module):
                  conv_cfg: Optional[Dict] = None,
                  norm_cfg: Optional[Dict] = None,
                  act_cfg: Any = _DEFAULT_ACT,
-                 inplace: bool = True):
+                 inplace: bool = True,
+                 order: Tuple[str, ...] = ("conv", "norm", "act")):
         super().__init__()
         if act_cfg is _DEFAULT_ACT:
             act_cfg = dict(type="ReLU")
+        assert isinstance(order, tuple) and sorted(order) == [
+            "act", "conv", "norm"], order
+        self.order = order
+        if order.index("act") < order.index("conv"):
+            inplace = False
         self.with_norm = norm_cfg is not None
         if bias == "auto":
             bias = not self.with_norm
@@ -45,7 +54,9 @@ class ConvModule(nn.Module):
             padding=padding, dilation=dilation, groups=groups, bias=bias)
         self.norm_name = None
         if self.with_norm:
-            self.norm_name, norm = build_norm_layer(norm_cfg, out_channels)
+            self.norm_name, norm = build_norm_layer(
+                norm_cfg, out_channels if order.index("norm")
+                > order.index("conv") else in_channels)
             self.add_module(self.norm_name, norm)
         self.activate = None
         if act_cfg is not None:
@@ -55,9 +66,11 @@ class ConvModule(nn.Module):
             self.activate = build_activation_layer(act_cfg)
 
     def forward(self, x):
-        x = self.conv(x)
-        if self.norm_name is not None:
-            x = getattr(self, self.norm_name)(x)
-        if self.activate is not None:
-            x = self.activate(x)
+        for layer in self.order:
+            if layer == "conv":
+                x = self.conv(x)
+            elif layer == "norm" and self.norm_name is not None:
+                x = getattr(self, self.norm_name)(x)
+            elif layer == "act" and self.activate is not None:
+                x = self.activate(x)
         return x

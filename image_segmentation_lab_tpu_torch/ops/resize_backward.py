@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,7 +59,8 @@ def build_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def axis_table(in_size: int, out_size: int, align_corners: bool
+def axis_table(in_size: int, out_size: int, align_corners: bool,
+               scale: Optional[float] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
     """``(indices, weights)`` of one axis, each ``(in_size, taps)``: input
     index i reads output indices ``indices[i]`` (ascending, then padded
@@ -67,7 +68,10 @@ def axis_table(in_size: int, out_size: int, align_corners: bool
     where padded).  The weights are ``F.interpolate``'s, in float32 step by
     step: ``src = scale·o`` with ``scale = (in-1)/(out-1)``
     (``align_corners``), else ``src = max(scale·(o + 0.5) - 0.5, 0)`` with
-    ``scale = in/out``; ``i0 = min(floor(src), in - 1)``, ``i1 = i0 + 1``
+    ``scale = in/out``, or ``1/scale`` rounded to float32 where the resize
+    was given a scale factor (not with ``align_corners``: ``F.interpolate``
+    takes the user's scale, see ``utils/ops.resize``);
+    ``i0 = min(floor(src), in - 1)``, ``i1 = i0 + 1``
     below the last index, ``w1 = src - i0``, ``w0 = 1 - w1``.  Where both
     taps of an output fall on one input (the last index), their weights are
     added; zero weights are left out."""
@@ -77,7 +81,8 @@ def axis_table(in_size: int, out_size: int, align_corners: bool
                  if out_size > 1 else np.float32(0))
         src = scale * o
     else:
-        scale = np.float32(in_size) / np.float32(out_size)
+        scale = (np.float32(1.0 / scale) if scale
+                 else np.float32(in_size) / np.float32(out_size))
         src = np.maximum(scale * (o + np.float32(0.5)) - np.float32(0.5),
                          np.float32(0))
     i0 = np.minimum(np.floor(src).astype(np.int64), in_size - 1)
@@ -98,10 +103,11 @@ def axis_table(in_size: int, out_size: int, align_corners: bool
 
 
 @functools.lru_cache(maxsize=None)
-def _tables(in_size, out_size, align_corners, device):
+def _tables(in_size, out_size, align_corners, device, scale=None):
     """``axis_table`` on ``device``: int32 indices, float32 weights."""
     return tuple(torch.from_numpy(t).to(device)
-                 for t in axis_table(in_size, out_size, align_corners))
+                 for t in axis_table(in_size, out_size, align_corners,
+                                     scale))
 
 
 def _check(g, in_size):
@@ -116,14 +122,17 @@ def _check(g, in_size):
 
 
 def resize_backward_plain(g: torch.Tensor, in_size: Sequence[int],
-                          align_corners: bool) -> torch.Tensor:
+                          align_corners: bool,
+                          scales: Optional[Tuple[float, float]] = None
+                          ) -> torch.Tensor:
     """The kernel's sums in plain torch: for each row tap and, within it,
     each column tap, ``acc + (w_row·w_col)·g`` in float32 (float64 for
     float64), every step rounded, padded taps left out; then g's dtype."""
     (in_h, in_w), (out_h, out_w) = in_size, g.shape[2:]
+    sh, sw = scales or (None, None)
     acc_dtype = torch.promote_types(g.dtype, torch.float32)
-    row_idx, row_w = _tables(in_h, out_h, align_corners, g.device)
-    col_idx, col_w = _tables(in_w, out_w, align_corners, g.device)
+    row_idx, row_w = _tables(in_h, out_h, align_corners, g.device, sh)
+    col_idx, col_w = _tables(in_w, out_w, align_corners, g.device, sw)
     col_ok, cols = col_idx >= 0, col_idx.clamp(min=0).long()
     gf = g.to(acc_dtype)
     acc = torch.zeros((*g.shape[:2], in_h, in_w), dtype=acc_dtype,
@@ -141,13 +150,16 @@ def resize_backward_plain(g: torch.Tensor, in_size: Sequence[int],
 
 
 def resize_backward(g: torch.Tensor, in_size: Sequence[int],
-                    align_corners: bool) -> torch.Tensor:
+                    align_corners: bool,
+                    scales: Optional[Tuple[float, float]] = None
+                    ) -> torch.Tensor:
     """dx ``(N, C, *in_size)`` in g's dtype of a bilinear resize to g's
-    spatial size; see the module docstring."""
+    spatial size (by the user's ``scales``, if given); see the module
+    docstring."""
     in_size = tuple(int(s) for s in in_size)
     _check(g, in_size)
     if g.device.type == "cpu":
-        return resize_backward_plain(g, in_size, align_corners)
+        return resize_backward_plain(g, in_size, align_corners, scales)
     g = g.contiguous()
     n, c, out_h, out_w = g.shape
     in_h, in_w = in_size
@@ -156,8 +168,9 @@ def resize_backward(g: torch.Tensor, in_size: Sequence[int],
         return dx
     if max(g.numel(), dx.numel()) >= 2 ** 31:
         raise ValueError("the kernel indexes elements with 32-bit ints")
-    row_idx, row_w = _tables(in_h, out_h, bool(align_corners), g.device)
-    col_idx, col_w = _tables(in_w, out_w, bool(align_corners), g.device)
+    sh, sw = scales or (None, None)
+    row_idx, row_w = _tables(in_h, out_h, bool(align_corners), g.device, sh)
+    col_idx, col_w = _tables(in_w, out_w, bool(align_corners), g.device, sw)
     lib = build_library()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream

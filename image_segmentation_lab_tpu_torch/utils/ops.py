@@ -33,6 +33,15 @@ Nearest takes the JAX package's rule, ``src = min(floor(dst * in / out),
 in - 1)`` with the ratio in float64, as two index selections:
 ``F.interpolate``'s nearest mode computes the ratio in float32 and picks
 another row at some sizes (84 -> 160, 112 -> 48, 600 -> 288, ...).
+
+``resize(x, scale_factor=s)`` gives ``int(H·s)`` rows, as the JAX resize
+does, and maps coordinates with the user's scale, step ``1/s``, not the
+ratio of the sizes (they differ where ``H·s`` is not whole: 25 rows at 0.5
+give 12, read at step 2, not 25/12), as ``F.interpolate`` does when it is
+given a scale factor.  The scale reaches every rule: the bilinear forward
+and the tables of its backward (``resize_backward.axis_table``), the
+bicubic matrices and the nearest index.  ``align_corners=True`` ignores
+it.  ``Upsample`` recomputes an integer size and resizes to it.
 """
 
 from __future__ import annotations
@@ -54,37 +63,52 @@ class BilinearResize(torch.autograd.Function):
     of ``ops/resize_backward.py``."""
 
     @staticmethod
-    def forward(ctx, x, size, align_corners):
+    def forward(ctx, x, size, align_corners, scales=None):
         ctx.in_size, ctx.align_corners = tuple(x.shape[2:]), align_corners
-        return F.interpolate(x, size=size, mode="bilinear",
-                             align_corners=align_corners)
+        ctx.scales = scales
+        return _interpolate(x, size, "bilinear", align_corners, scales)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        return (resize_backward(grad, ctx.in_size, ctx.align_corners),
-                None, None)
+        return (resize_backward(grad, ctx.in_size, ctx.align_corners,
+                                ctx.scales), None, None, None)
 
 
-def _nearest_index(in_size: int, out_size: int, device) -> torch.Tensor:
-    rows = np.minimum(np.floor(np.arange(out_size) * (in_size / out_size)),
-                      in_size - 1)
+def _interpolate(x, size, mode, align_corners, scales):
+    """``F.interpolate`` to ``size``, or by the user's ``scales`` (whose
+    output size is ``size``)."""
+    if scales is None:
+        return F.interpolate(x, size=size, mode=mode,
+                             align_corners=align_corners)
+    return F.interpolate(x, scale_factor=scales, mode=mode,
+                         align_corners=align_corners,
+                         recompute_scale_factor=False)
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_index(in_size: int, out_size: int, device,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    step = 1.0 / scale if scale else in_size / out_size
+    rows = np.minimum(np.floor(np.arange(out_size) * step), in_size - 1)
     return torch.from_numpy(rows.astype(np.int64)).to(device)
 
 
 @functools.lru_cache(maxsize=64)
 def bicubic_matrix(in_size: int, out_size: int, align_corners: bool,
                    device: torch.device = torch.device("cpu"),
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   dtype: torch.dtype = torch.float32,
+                   scale: Optional[float] = None) -> torch.Tensor:
     """``(out_size, in_size)`` cubic-convolution matrix of one axis, as
     ``F.interpolate``'s bicubic weights it: taps at ``floor(src) - 1 ...
     floor(src) + 2``, clamped to the border (duplicates add up), and no
-    clamp of a negative ``src``."""
+    clamp of a negative ``src``; step ``1/scale`` where a scale is given."""
     dst = np.arange(out_size, dtype=np.float64)
     if align_corners:
         src = dst * ((in_size - 1) / (out_size - 1) if out_size > 1 else 0.0)
     else:
-        src = (dst + 0.5) * (in_size / out_size) - 0.5
+        src = (dst + 0.5) * (1.0 / scale if scale
+                             else in_size / out_size) - 0.5
     i0 = np.floor(src)
     ax = np.abs(np.arange(-1, 3)[None, :] - (src - i0)[:, None])
     a = -0.75
@@ -101,23 +125,35 @@ def bicubic_matrix(in_size: int, out_size: int, align_corners: bool,
 
 
 def resize_bicubic(x: torch.Tensor, size: Tuple[int, int],
-                   align_corners: bool = False) -> torch.Tensor:
+                   align_corners: bool = False,
+                   scales: Optional[Tuple[float, float]] = None
+                   ) -> torch.Tensor:
     """Bicubic resize of an NCHW tensor as two matrix products, in float32
     (float64 for a float64 input) outside autocast, rounded once."""
     dtype = torch.promote_types(x.dtype, torch.float32)
+    sh, sw = scales or (None, None)
     rows = bicubic_matrix(x.shape[2], size[0], align_corners, x.device,
-                          dtype)
+                          dtype, sh)
     cols = bicubic_matrix(x.shape[3], size[1], align_corners, x.device,
-                          dtype)
+                          dtype, sw)
     with torch.autocast(x.device.type, enabled=False):
         return torch.matmul(torch.matmul(rows, x.to(dtype)),
                             cols.T).to(x.dtype)
 
 
-def resize(input, size: Sequence[int], mode: str = "bilinear",
-           align_corners: Optional[bool] = None, warning: bool = True):
-    size = tuple(int(s) for s in size)
+def resize(input, size: Optional[Sequence[int]] = None,
+           mode: str = "bilinear", align_corners: Optional[bool] = None,
+           warning: bool = True, *,
+           scale_factor: Optional[Union[float, Tuple[float, float]]] = None):
     H, W = input.shape[2:]
+    scales = None
+    if size is None:
+        assert scale_factor is not None, "resize needs a size or a scale"
+        scales = tuple(float(s) for s in (
+            scale_factor if isinstance(scale_factor, (tuple, list))
+            else (scale_factor, scale_factor)))
+        size = (int(H * scales[0]), int(W * scales[1]))
+    size = tuple(int(s) for s in size)
     if warning and align_corners:
         oh, ow = size
         if ((oh > 1 and ow > 1 and H > 1 and W > 1)
@@ -128,18 +164,19 @@ def resize(input, size: Sequence[int], mode: str = "bilinear",
                 f"satisfy (out-1) % (in-1) == 0")
     if (H, W) == size:
         return input
+    sh, sw = scales or (None, None)
     if mode == "nearest":
         return input.index_select(
-            2, _nearest_index(H, size[0], input.device)).index_select(
-            3, _nearest_index(W, size[1], input.device))
+            2, _nearest_index(H, size[0], input.device, sh)).index_select(
+            3, _nearest_index(W, size[1], input.device, sw))
     if mode == "bicubic":
-        return resize_bicubic(input, size, bool(align_corners))
+        return resize_bicubic(input, size, bool(align_corners), scales)
     with torch.autocast(input.device.type, enabled=False):
         if (mode == "bilinear" and torch.is_grad_enabled()
                 and input.requires_grad):
-            return BilinearResize.apply(input, size, bool(align_corners))
-        return F.interpolate(input, size=size, mode=mode,
-                             align_corners=bool(align_corners))
+            return BilinearResize.apply(input, size, bool(align_corners),
+                                        scales)
+        return _interpolate(input, size, mode, bool(align_corners), scales)
 
 
 class Upsample(nn.Module):

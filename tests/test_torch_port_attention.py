@@ -28,6 +28,10 @@ from image_segmentation_lab_tpu_torch.ops import (  # noqa: E402
     attention, flash_attention, resize_backward)
 from image_segmentation_lab_tpu_torch.utils.ops import resize  # noqa: E402
 
+# the JAX references run jitted with XLA's backend optimisation off, as
+# ``torch_port_helpers.compile_quickly`` compiles: one quick compile per
+# case, where the interpret-mode kernel run eagerly compiles every step
+QUICK = dict(compiler_options={"xla_backend_optimization_level": 0})
 F32 = dict(atol=2e-6, rtol=1e-5)
 F32_GRAD = dict(atol=2e-5, rtol=1e-4)
 BF16 = dict(atol=2e-2, rtol=2e-2)
@@ -58,8 +62,10 @@ def test_forward_matches_the_jax_flash_kernel(name):
     (B, Lq, Lk, d), _ = SHAPES[name]
     q, k, v = qkv(B, Lq, Lk, d)
     scale = 1.0 / np.sqrt(d)
-    ref_o = jflash.flash_attention(q, k, v, scale, 64, 64, True)
-    _, ref_lse = jflash._flash_forward(q, k, v, scale, 64, 64, True)
+    ref_o, ref_lse = jax.jit(lambda q, k, v: (
+        jflash.flash_attention(q, k, v, scale, 64, 64, True),
+        jflash._flash_forward(q, k, v, scale, 64, 64, True)[1]),
+        **QUICK)(q, k, v)
     o, lse = flash_attention.flash_attention_forward(
         as_heads(q), as_heads(k), as_heads(v), scale)
     assert o.shape == (B, Lq, 1, d) and lse.shape == (B, 1, Lq)
@@ -75,7 +81,8 @@ def test_multihead_matches_the_jax_einsum_path(name):
     q, k, v = (x.reshape(N, h, -1, d).transpose(0, 2, 1, 3)
                for x in qkv(B, Lq, Lk, d, seed=1))
     scale = 1.0 / np.sqrt(d)
-    ref = jattention.multihead_attention(q, k, v, scale, force="einsum")
+    ref = jax.jit(lambda q, k, v: jattention.multihead_attention(
+        q, k, v, scale, force="einsum"), **QUICK)(q, k, v)
     tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(x))
                   for x in (q, k, v))
     out = attention.multihead_attention(tq, tk, tv, scale)
@@ -88,7 +95,8 @@ def test_bf16_matches_the_jax_flash_kernel():
     q, k, v = (jnp.asarray(rng.randn(B, L, d), jnp.bfloat16)
                for _ in range(3))
     scale = 1.0 / np.sqrt(d)
-    ref = jflash.flash_attention(q, k, v, scale, 64, 64, True)
+    ref = jax.jit(lambda q, k, v: jflash.flash_attention(
+        q, k, v, scale, 64, 64, True), **QUICK)(q, k, v)
     tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32)))
                   .to(torch.bfloat16)[:, :, None] for x in (q, k, v))
     o, _ = flash_attention.attention_plain(tq, tk, tv, scale)
@@ -100,9 +108,11 @@ def test_bf16_matches_the_jax_flash_kernel():
 
 def jax_grads(q, k, v, do, scale):
     """``jax.vjp`` of the JAX flash kernel (interpret mode, 64-blocks)."""
-    _, vjp = jax.vjp(lambda *a: jflash.flash_attention(*a, scale, 64, 64,
-                                                       True), q, k, v)
-    return vjp(do)
+    def grads(q, k, v, do):
+        _, vjp = jax.vjp(lambda *a: jflash.flash_attention(
+            *a, scale, 64, 64, True), q, k, v)
+        return vjp(do)
+    return jax.jit(grads, **QUICK)(q, k, v, do)
 
 
 def to_port(x, N, h):

@@ -117,7 +117,9 @@ def restore_globals():
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory, restore_globals):
     """The train CLI: 2 epochs (``full``), 1 epoch (``half``), and
-    ``half``'s ``last.pth`` resumed to epoch 2 (``resumed``)."""
+    ``half``'s ``last.pth`` resumed to epoch 2 (``resumed``); ``full`` and
+    ``resumed``, whose ``last.pth`` only the resume test reads, skip the
+    validation (``--no-validate``), which changes no weight."""
     root = tmp_path_factory.mktemp("cli")
     (root / "dataset.py").write_text(DATASET)
     (root / "schedule.py").write_text(SCHEDULE)
@@ -126,11 +128,12 @@ def runs(tmp_path_factory, restore_globals):
               str(root / "schedule.py"), "--work-dir", str(root / "runs"),
               "--device", "cpu", "--ema-decay", "0.9"]
     weights = {}
-    for name, extra in (("full", []), ("half", [
+    for name, extra in (("full", ["--no-validate"]), ("half", [
             "--epochs", "1", "--profile-dir", str(root / "profile")])):
         assert train.main(common + ["--name", name] + extra) == 0
         weights[name] = root / "runs" / "train" / name / "weights"
-    resume = ["--resume-from", str(weights["half"] / "last.pth")]
+    resume = ["--resume-from", str(weights["half"] / "last.pth"),
+              "--no-validate"]
     assert train.main(common + ["--name", "resumed"] + resume) == 0
     weights["resumed"] = root / "runs" / "train" / "resumed" / "weights"
     return dict(root=root, common=common, weights=weights)

@@ -22,9 +22,11 @@ from image_segmentation_lab_tpu.ops.pallas.confusion import (  # noqa: E402
 from image_segmentation_lab_tpu_torch.ops import (  # noqa: E402
     confusion, nvcc_build)
 
-# jitted: one compile per case instead of one per eager op and shape
-jax_histograms = jax.jit(jax_histograms, static_argnums=(2, 3, 4))
-_hist_pallas = jax.jit(_hist_pallas, static_argnums=(2, 3, 4))
+# jitted: one compile per case instead of one per eager op and shape, with
+# XLA's backend optimisation off (``torch_port_helpers.compile_quickly``)
+QUICK = dict(compiler_options={"xla_backend_optimization_level": 0})
+jax_histograms = jax.jit(jax_histograms, static_argnums=(2, 3, 4), **QUICK)
+_hist_pallas = jax.jit(_hist_pallas, static_argnums=(2, 3, 4), **QUICK)
 
 # name: (gt shape (N, H, W), logit channels, num_classes, ignore_index)
 CASES = {

@@ -999,3 +999,65 @@ def test_auction_on_the_card_equals_the_cpu(cuda):
     assert torch.equal(col.cpu(), ref_col) and torch.equal(owner.cpu(),
                                                            ref_owner)
     assert bool((ref_col[valid] >= 0).all())
+
+
+def test_resize_backward_kernel_takes_the_users_scale(cuda):
+    """MultiLevelNeck's 0.5 level on an odd grid (25 -> 12, read at step
+    2) and its 4x and 2x levels: the kernel's tables carry the scale, and
+    one launch gives the plain version's bits in both dtypes."""
+    for (n, c, h, w), scale in (((2, 8, 25, 25), 0.5), ((2, 8, 25, 25), 4),
+                                ((2, 8, 13, 11), 2)):
+        size = (int(h * scale), int(w * scale))
+        gen = torch.Generator().manual_seed(case_seed(f"scale_{scale}"))
+        for dtype in (torch.float32, torch.bfloat16):
+            gy = torch.randn(n, c, *size, generator=gen).to(cuda, dtype)
+            got = resize_backward.resize_backward(gy, (h, w), False,
+                                                  (scale, scale))
+            assert torch.equal(got, resize_backward.resize_backward_plain(
+                gy, (h, w), False, (scale, scale)))
+        x = torch.randn(n, c, h, w, generator=gen).to(cuda)
+        x.requires_grad_(True)
+        with torch.enable_grad():
+            out = resize(x, scale_factor=scale, align_corners=False)
+            out.backward(gy.float())
+        assert out.shape[2:] == size
+        assert torch.equal(x.grad, resize_backward.resize_backward_plain(
+            gy.float(), (h, w), False, (scale, scale)))
+
+
+@pytest.mark.parametrize("what", ["avg_pool2d_poolformer",
+                                  "avg_pool2d_v1d", "nearest_fpn"])
+def test_pool_and_nearest_backward_repeat_under_deterministic_algorithms(
+        cuda, what):
+    """PoolFormer's mixer (3/1/1 without the padding counted), ResNetV1d's
+    averaged shortcut (2/2, ``ceil_mode``, on an odd map) and the FPN's
+    nearest top-down resize (``index_select``, whose backward adds by
+    index) under ``torch.use_deterministic_algorithms(True)``, which
+    raises on an op without a deterministic CUDA implementation: the same
+    bits twice, and the CPU's gradient within float32 rounding."""
+    from image_segmentation_lab_tpu_torch.ops.pooling import avg_pool2d
+    fns = {"avg_pool2d_poolformer": ((8, 64, 128, 128), lambda x: avg_pool2d(
+               x, 3, 1, 1, count_include_pad=False)),
+           "avg_pool2d_v1d": ((8, 256, 81, 81), lambda x: avg_pool2d(
+               x, 2, 2, ceil_mode=True, count_include_pad=False)),
+           "nearest_fpn": ((8, 256, 16, 16), lambda x: resize(
+               x, (32, 32), mode="nearest"))}
+    shape, fn = fns[what]
+    gen = torch.Generator().manual_seed(case_seed(what))
+    x = torch.randn(*shape, generator=gen)
+    cot = torch.randn(*fn(x).shape, generator=gen)
+
+    def grad(device):
+        t = x.to(device).requires_grad_(True)
+        with torch.enable_grad():
+            fn(t).backward(cot.to(device))
+        return t.grad
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        first, second = grad(cuda), grad(cuda)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first.cpu(), grad("cpu"), rtol=1e-5,
+                               atol=1e-6)

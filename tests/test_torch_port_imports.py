@@ -26,7 +26,13 @@ new = ("models.backbones.mit", "models.decode_heads.segformer_head",
        "models.decode_heads.maskformer_head",
        "models.decode_heads.mask2former_head", "ops.matching",
        "ops.point_sample", "core.evaluation.panoptic",
-       "core.evaluation.instances", "core.evaluation.instance_ap")
+       "core.evaluation.instances", "core.evaluation.instance_ap",
+       "models.necks.mla_neck", "models.necks.multilevel_neck",
+       "models.necks.fpn", "models.decode_heads.setr_mla_head",
+       "models.decode_heads.dpt_head",
+       "models.decode_heads.segmenter_mask_head",
+       "models.decode_heads.fpn_head", "models.backbones.twins",
+       "models.backbones.poolformer")
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 forbidden = ("jax", "flax", "optax", "orbax", "image_segmentation_lab_tpu",

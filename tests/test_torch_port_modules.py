@@ -13,8 +13,8 @@ import torch.nn.functional as F
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
-from torch_port_helpers import (bridge, init_jax, jax_apply,  # noqa: E402
-                                to_nchw, to_nhwc)
+from torch_port_helpers import (bridge, compile_quickly,  # noqa: E402
+                                init_jax, jax_apply, to_nchw, to_nhwc)
 
 from image_segmentation_lab_tpu.models.backbones import resnet as jresnet  # noqa: E402,E501
 from image_segmentation_lab_tpu.models.common.conv_module import \
@@ -86,7 +86,8 @@ def test_resnet_v1c_d8():
     x = rand(1, 37, 43, 3)
     variables = init_jax(jm, x)
     bridge(pm, variables)
-    refs = jax.jit(lambda v, x: jm.apply(v, x))(variables, x)
+    refs = compile_quickly(jax.jit(lambda v, x: jm.apply(v, x)),
+                           variables, x)(variables, x)
     with torch.no_grad():
         outs = pm(to_nchw(x))
     assert len(outs) == len(refs) == 4

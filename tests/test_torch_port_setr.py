@@ -16,7 +16,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from torch_port_helpers import (TINY_VIT, assert_argmax_parity,  # noqa: E402,E501
-                                bridge, init_jax, jax_apply,
+                                bridge, compile_quickly, init_jax, jax_apply,
                                 tiny_setr_network, to_nchw, to_nhwc)
 
 from image_segmentation_lab_tpu.core.initialize.checkpoint import (  # noqa: E402,E501
@@ -84,8 +84,9 @@ def test_bicubic_resize(src, dst):
     """The position-table resize: torch's a = -0.75 kernel, unclamped
     negative source coordinates, replicated border taps."""
     x = rand(1, src, src, 6)
-    ref = jresize(jnp.asarray(x), (dst, dst), mode="bicubic",
-                  align_corners=False)
+    fn = jax.jit(lambda x: jresize(x, (dst, dst), mode="bicubic",
+                                   align_corners=False))
+    ref = compile_quickly(fn, x)(x)
     out = resize(to_nchw(x), (dst, dst), mode="bicubic", align_corners=False)
     np.testing.assert_allclose(to_nhwc(out), np.asarray(ref), **TOL)
 
@@ -107,7 +108,8 @@ def test_vision_transformer(variant):
     x = rand(2, 40, 40, 3)
     variables = init_jax(jm, x)
     bridge(pm, variables)
-    refs = jax.jit(lambda v, x: jm.apply(v, x))(variables, x)
+    refs = compile_quickly(jax.jit(lambda v, x: jm.apply(v, x)),
+                           variables, x)(variables, x)
     with torch.no_grad():
         outs = pm(to_nchw(x))
     assert len(outs) == len(refs) == 2
@@ -117,10 +119,15 @@ def test_vision_transformer(variant):
 
 
 def test_unported_vit_features_raise():
+    """``output_cls_token`` is ported (DPT's readout) and raises only
+    without a class token; the rest are not ported yet."""
     for kw in (dict(num_experts=4), dict(with_cp=True),
-               dict(output_cls_token=True), dict(frozen_stages=1)):
+               dict(frozen_stages=1)):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             vit.VisionTransformer(**TINY_VIT, **kw)
+    with pytest.raises(ValueError, match="with_cls_token"):
+        vit.VisionTransformer(**TINY_VIT, output_cls_token=True,
+                              with_cls_token=False)
 
 
 def test_drop_path():

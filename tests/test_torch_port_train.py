@@ -23,7 +23,8 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
-from torch_port_helpers import (bridge, init_jax, tiny_flagship_cfg,  # noqa: E402,E501
+from torch_port_helpers import (bridge, compile_quickly,  # noqa: E402
+                                init_jax, tiny_flagship_cfg,
                                 tiny_setr_network, to_nchw, to_nhwc)
 
 from image_segmentation_lab_tpu import train_state as jtrain  # noqa: E402
@@ -65,9 +66,9 @@ def jax_variables(network, size=40):
 
 
 def jax_forward_train(jm, variables, img, gt):
-    fn = jax.jit(lambda v, i, g: jm.apply(
+    fn = compile_quickly(jax.jit(lambda v, i, g: jm.apply(
         v, i, g, method="forward_train", train=True,
-        mutable=["batch_stats"])[0][1])
+        mutable=["batch_stats"])[0][1]), variables, img, gt)
     return {k: np.asarray(v) for k, v in fn(variables, img, gt).items()}
 
 
@@ -115,9 +116,9 @@ def test_aux_head_list_and_rescale_match_jax():
     jm, variables = jax_variables(network)
     img, gt = batch(seed=10)
     meta = {"ori_img_size_hw": (30, 36)}
-    fn = jax.jit(lambda v, i, g: jm.apply(
+    fn = compile_quickly(jax.jit(lambda v, i, g: jm.apply(
         v, i, g, meta, rescale=True, method="forward_train", train=True,
-        mutable=["batch_stats"])[0])
+        mutable=["batch_stats"])[0]), variables, img, gt)
     ref_logits, ref_losses = fn(variables, img, gt)
     model = bridge(build_segmentor(network), variables).train()
     with torch.enable_grad():

@@ -151,7 +151,8 @@ def compile_quickly(jitted, *args):
 
 
 def jax_apply(module, variables, *args, method=None, **kwargs):
-    """``module.apply`` under ``jax.jit``: one compile instead of one per
-    eager op."""
+    """``module.apply`` under ``jax.jit``, compiled by ``compile_quickly``:
+    one quick compile instead of one per eager op."""
     fn = jax.jit(lambda v, *a: module.apply(v, *a, method=method, **kwargs))
-    return np.asarray(fn(variables, *args))
+    return np.asarray(compile_quickly(fn, variables, *args)(variables,
+                                                            *args))
