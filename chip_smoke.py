@@ -74,17 +74,21 @@ printing its own lines; any failure raises and the exit code is not 0:
    ``F.scaled_dot_product_attention`` in the same dtype as a yardstick
    (never on the path) and the device time of ``backward_delta`` (the
    kernels' delta = rowsum(dO·O), plain torch);
-8b. resize backward kernel (the gradient of the bilinear resize, a gather
-   with no atomics): against its plain version (the same bits) at SETR's
-   six upsamples in its train step, DeepLabV3's at 512² and 640² (the
-   8x logits and the 1 x 1 ASPP image pool, wide tables), SegFormer-B2's
-   at 16 x 640² (the head's 768 channels to 160², the logits to 640²) and
-   PSPNet's pyramid pooling (1 x 1 and 6 x 6 to 80²) and Mask2Former's
-   pixel decoder at 8 x 640² (M2F_RESIZE_SHAPES), in float32 and
-   bfloat16, and the rest of the pyramid heads' amp steps in bfloat16
-   (PYRAMID_RESIZE_SHAPES); the bf16 result must be the kernel's float32 result rounded once and a second
-   call the same bits; beside it ``F.interpolate``'s own backward
-   (``aten::upsample_bilinear2d_backward``) as a yardstick;
+8b. resize backward kernel (the gradient of the bilinear resize, two
+   separable passes through shared memory, no atomics): against its plain
+   version (the same bits) at SETR's six upsamples in its train step,
+   DeepLabV3's at 512² and 640² (the 8x logits and the 1 x 1 ASPP image
+   pool, wide tables), SegFormer-B2's at 16 x 640² (the head's 768
+   channels to 160², the logits to 640²) and PSPNet's pyramid pooling (1 x
+   1 and 6 x 6 to 80²) and Mask2Former's pixel decoder at 8 x 640²
+   (M2F_RESIZE_SHAPES), in float32 and bfloat16, the rest of the pyramid
+   heads' amp steps in bfloat16 (PYRAMID_RESIZE_SHAPES), phase 22's
+   (DECODER_RESIZE_SHAPES) and an align_corners upsample
+   (ALIGN_CORNERS_RESIZES); one launch a call, the bf16 result the
+   kernel's float32 result rounded once and a second call the same bits;
+   beside it ``F.interpolate``'s own backward
+   (``aten::upsample_bilinear2d_backward``) as a yardstick, and each row's
+   device time over the library's and its bound over its device time;
 9. SETR train slice: full-width SETR-PUP ViT-S/16 through ``init_model``,
    ``create_train_state`` and ``make_train_step`` (SGD and StepLR of the
    kvasir schedule, drop path 0.1 from a CUDA generator) for 10 steps on
@@ -413,8 +417,8 @@ SETR_RESIZES = [((8, 256, 40, 40), (80, 80)),
                 ((8, 2, 40, 40), (160, 160)),
                 ((8, 2, 160, 160), (640, 640))]
 # DeepLabV3-R50-d8's bilinear resizes under grad in its train step at 16 x
-# 512² (align_corners False): the decode and aux heads' logits (8x, 16 x 16
-# taps an element) and the ASPP image pool (a 1 x 1 input, 64 x 64 taps)
+# 512² (align_corners False): the decode and aux heads' logits (8x, 16 taps
+# an axis) and the ASPP image pool (a 1 x 1 input, 64 taps an axis)
 DEEPLAB_RESIZES = [((16, 2, 64, 64), (512, 512)),
                    ((16, 2, 64, 64), (512, 512)),
                    ((16, 512, 1, 1), (64, 64))]
@@ -709,6 +713,9 @@ DECODER_RESIZE_SHAPES = [
       for s in (20, 40, 80)),
     ((16, 2, 160, 160), (640, 640), None, (torch.bfloat16,)),
     ((16, 2, 320, 320), (640, 640), None, (torch.bfloat16,))]
+# align_corners=True, which no config of the main paths takes: UPerNet's
+# 2x top-down step on 256 channels, in both dtypes
+ALIGN_CORNERS_RESIZES = [((16, 256, 40, 40), (80, 80))]
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
@@ -784,9 +791,12 @@ def device_ms(fn, kernel, flush, runs=20, attempts=5):
     every kernel but the flush's own, with ``flush()`` before each call.
     A profile that holds no device activity at all, or fewer launches of
     ``kernel`` than calls (the profiler now and then drops a trace or part
-    of one), is taken again, up to ``attempts`` times, and said so; where
-    launches are still missing, the kernel's time is the mean of the
-    launches it recorded."""
+    of one), is taken again, up to ``attempts`` times, and said so.  Each
+    kernel's time is the mean of the launches it recorded times its
+    launches a call (``kernel``: one; else its recorded launches over the
+    calls, rounded, at least one), so launches the profiler dropped count
+    at their mean."""
+    skip = flush_kernels(flush) if flush is not None else ()
     for attempt in range(attempts):
         times, _, counts = kernel_times(fn, flush, runs)
         launched = sum(n for name, n in counts.items()
@@ -795,8 +805,8 @@ def device_ms(fn, kernel, flush, runs=20, attempts=5):
             break
         print(f"profile {attempt + 1} of {kernel}: {len(times)} kernels, "
               f"{launched} of {runs} launches", flush=True)
-    skip = flush_kernels(flush) if flush is not None else ()
-    hits = [ms * runs / counts[name] if kernel else ms
+    hits = [ms * runs / counts[name] * (1 if kernel else
+                                        max(1, round(counts[name] / runs)))
             for name, ms in times.items()
             if (kernel in name if kernel else name not in skip)]
     if not hits:
@@ -1639,68 +1649,76 @@ def flash_backward_phase(device, l2_flush):
 def resize_backward_phase(device, l2_flush):
     """The resize backward kernel against its plain version (the same
     bits), its own float32 result rounded once (bf16) and its second call
-    (the same bits), at each shape of SETR's, DeepLabV3's and SegFormer's
-    train steps and Mask2Former's pixel decoder in both dtypes and of the
-    pyramid heads' amp steps in bf16, and phase 22's (DECODER_RESIZE_SHAPES,
-    MultiLevelNeck's with the user's scale);
-    times of the kernel, the plain version and ``F.interpolate``'s own
-    backward."""
+    (the same bits), one launch a call, at each shape of SETR's,
+    DeepLabV3's and SegFormer's train steps and Mask2Former's pixel decoder
+    in both dtypes and of the pyramid heads' amp steps in bf16, phase 22's
+    (DECODER_RESIZE_SHAPES, MultiLevelNeck's with the user's scale) and
+    ALIGN_CORNERS_RESIZES; times of the kernel, the plain version and
+    ``F.interpolate``'s own backward, the bound and the kernel's device
+    time over the library's."""
     gen = torch.Generator(device=device).manual_seed(3)
     rows = []
     both = dict.fromkeys((*SETR_RESIZES, *DEEPLAB_RESIZES,
                           *DEEPLAB_RESIZES_640, *SEGFORMER_RESIZE_SHAPES,
                           *PSPNET_RESIZE_SHAPES, *M2F_RESIZE_SHAPES))
-    cases = ([(shape, size, None, (torch.float32, torch.bfloat16))
-              for shape, size in both]
-             + [(shape, size, None, (torch.bfloat16,)) for shape, size in
-                dict.fromkeys(PYRAMID_RESIZE_SHAPES)]
-             + DECODER_RESIZE_SHAPES)
-    for (n, c, h, w), size, scales, dtypes in cases:
+    f32_bf16 = (torch.float32, torch.bfloat16)
+    cases = ([(shape, size, None, f32_bf16, False) for shape, size in both]
+             + [(shape, size, None, (torch.bfloat16,), False)
+                for shape, size in dict.fromkeys(PYRAMID_RESIZE_SHAPES)]
+             + [(*case, False) for case in DECODER_RESIZE_SHAPES]
+             + [(shape, size, None, f32_bf16, True)
+                for shape, size in ALIGN_CORNERS_RESIZES])
+    for (n, c, h, w), size, scales, dtypes, ac in cases:
         for dtype in dtypes:
             gy = torch.randn((n, c, *size), generator=gen,
                              device=device).to(dtype)
 
             def kernel():
-                return resize_backward.resize_backward(gy, (h, w), False,
+                return resize_backward.resize_backward(gy, (h, w), ac,
                                                        scales)
 
             def plain():
-                return resize_backward.resize_backward_plain(gy, (h, w),
-                                                             False, scales)
+                return resize_backward.resize_backward_plain(gy, (h, w), ac,
+                                                             scales)
 
             def library():
                 return torch.ops.aten.upsample_bilinear2d_backward(
-                    gy, list(size), [n, c, h, w], False,
+                    gy, list(size), [n, c, h, w], ac,
                     *(scales or (None, None)))
 
+            before = dict(resize_backward.launches)
             got = kernel()
+            one_launch = sum(resize_backward.launches.values()) \
+                - sum(before.values()) == 1
             exact = torch.equal(got, plain())
             repeat = torch.equal(got, kernel())
             rounded_once = dtype == torch.float32 or torch.equal(
                 got, resize_backward.resize_backward(
-                    gy.float(), (h, w), False, scales).to(dtype))
+                    gy.float(), (h, w), ac, scales).to(dtype))
             ref = library().float()
             lib_err = float((got.float() - ref).abs().max())
             torch.cuda.synchronize()
-            if not (exact and repeat and rounded_once):
+            if not (exact and repeat and rounded_once and one_launch):
                 raise AssertionError(
-                    f"resize backward at {(n, c, h, w)}->{size} {dtype}: "
-                    f"same bits as plain {exact}, on a second call "
-                    f"{repeat}, bf16 = float32 rounded once {rounded_once}")
-            # reads g once, writes dx once (and the small tables); three
-            # operations a tap: the weights' product, its product with g,
-            # the add
-            taps = n * c * math.prod(
-                int((resize_backward.axis_table(i, o, False, sc)[0]
-                     >= 0).sum())
-                for i, o, sc in zip((h, w), size, scales or (None, None)))
+                    f"resize backward at {(n, c, h, w)}->{size} {dtype} "
+                    f"align_corners {ac}: same bits as plain {exact}, on "
+                    f"a second call {repeat}, bf16 = float32 rounded once "
+                    f"{rounded_once}, one launch {one_launch}")
+            # reads g once, writes dx once (and the small tables); two
+            # operations a tap (the product with the weight, the add) of
+            # the W pass (every g row's column taps) and the H pass (every
+            # dx column's row taps)
+            taps = [int((resize_backward.axis_table(i, o, ac, sc)[0]
+                         >= 0).sum())
+                    for i, o, sc in zip((h, w), size, scales or (None, None))]
+            ops = 2.0 * n * c * (size[0] * taps[1] + w * taps[0])
             bound, bound_by = bound_ms(
-                (gy.numel() + got.numel()) * gy.element_size(), 3.0 * taps,
+                (gy.numel() + got.numel()) * gy.element_size(), ops,
                 PEAK_FLOPS[torch.float32])
             flush = l2_flush.zero_
             row = dict(
                 shape=[n, c, h, w], size=list(size), scales=scales,
-                dtype=str(dtype).replace("torch.", ""),
+                align_corners=ac, dtype=str(dtype).replace("torch.", ""),
                 same_bits_as_plain=exact, repeats_bit_for_bit=repeat,
                 bf16_is_float32_rounded_once=rounded_once,
                 max_abs_err=0.0, vs_library_max_abs_err=lib_err,
@@ -1708,10 +1726,12 @@ def resize_backward_phase(device, l2_flush):
                 ms=cuda_ms(kernel, flush),
                 device_ms=device_ms(kernel, "resize_backward_kernel",
                                     flush),
-                plain_ms=cuda_ms(plain, flush),
+                plain_ms=cuda_ms(plain, flush, warmup=1, runs=5),
                 library_ms=cuda_ms(library, flush),
                 library_device_ms=device_ms(library, None, flush),
                 bound_ms=bound, bound_by=bound_by)
+            row["vs_library"] = row["device_ms"] / row["library_device_ms"]
+            row["bound_share"] = bound / row["device_ms"]
             print("resize backward:", json.dumps(row), flush=True)
             rows.append(row)
             del gy, got, ref
@@ -4402,9 +4422,9 @@ def main():
                                     "bound_ms", "bound_by")}
                  for r in segformer_resize],
     }, {
-        # the same kernel on the flagship's wide tables (taps one at a
-        # time); the row is the ASPP image pool in bf16, as the amp step
-        # runs it, and "rows" holds every DeepLabV3 shape and dtype
+        # the same kernel on the flagship's wide tables; the row is the
+        # ASPP image pool in bf16, as the amp step runs it, and "rows" holds
+        # every DeepLabV3 shape and dtype
         "name": "resize_backward_deeplabv3",
         "route": "cuda",
         "source": "image_segmentation_lab_tpu_torch/csrc/resize_backward.cu",

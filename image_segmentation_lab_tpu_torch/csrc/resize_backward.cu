@@ -1,6 +1,7 @@
 // Bilinear resize backward, CUDA C++ for sm_90a: the gradient of
 // F.interpolate(x, size, mode="bilinear", align_corners) with respect to
-// its NCHW input x, as a gather with no atomics.
+// its NCHW input x, in two separable passes through shared memory, with no
+// atomics.
 //
 // Replaces, on the port's path, PyTorch's own upsample_bilinear2d backward,
 // which scatters with atomicAdd (rounding every add to bf16 for bf16
@@ -10,68 +11,115 @@
 // once, so its gradient is the float32 gradient rounded once.
 //
 // The forward is separable: y[o, p] = sum_i sum_j A[o, i] B[p, j] x[i, j],
-// where row o of A (and B) holds the two lerp weights of output o.  So
-//   dx[i, j] = sum_o sum_p A[o, i] B[p, j] g[o, p],
-// and per axis a small host-built table lists, for each input index i, the
-// output indices o with A[o, i] != 0 (ascending) and their weights, padded
-// to the most taps of any input index with index -1 and weight 0: an
-// (in, taps) table of int32 indices and one of float32 weights, the weights
-// computed as F.interpolate's forward computes them.  A 2x step gives 4 x 4
-// taps per input element, a 4x step 8 x 8, a downsample 1-2 per axis, and
-// an input side of 1 every output of that axis.
+// where row o of A (and p of B) holds the two lerp weights of output o.
+// So, per plane,
+//   h[o, j]  = sum_p B[p, j] g[o, p]     (the W pass, ascending p)
+//   dx[i, j] = sum_o A[o, i] h[o, j]     (the H pass, ascending o),
+// each partial h[o, j] computed once and read by every input row that taps
+// output row o.  The weights are F.interpolate's forward's, in float32
+// (ops/resize_backward.py::axis_table, from which the host builds this
+// kernel's tables); the outputs that read one input index are consecutive.
+// Every step is rounded (no fused multiply-add), the partials are float32
+// and dx is written once in g's dtype, so the plain version, which takes
+// the same steps in the same order, gives the same bits, a second call gives
+// them again, and a bf16 dx is the float32 dx rounded once.
 //
-// Design: one thread per input element (n, c, i, j) sums
-// (A[o, i] * B[p, j]) * g[o, p] over its row taps o (ascending) and, for
-// each, its column taps p (ascending), in float32 with every step rounded
-// (no fused multiply-add, so the plain version, which takes the same steps
-// tap by tap, gives the same bits), and writes dx once in x's dtype: the
-// same bits from call to call, and a bf16 dx is the float32 dx rounded once
-// (g and dx share a dtype: float32 or bf16).  Where no input index has more
-// than kTaps = 4 or 8 taps on either axis (every upsample up to 4x), a
-// thread first holds its taps of both axes in registers and issues all its loads of g before the sums, so they are in
-// flight together; other tables (an upsample above 4x, a large
-// downsample, a 1-pixel input) take the taps one at a time.  Indices are
-// 32-bit (the wrapper keeps the element counts below 2^31).
+// Tiles.  A tile is a band of input rows of one plane, or several whole
+// planes where planes are small, and the contiguous band of g rows that
+// those input rows tap; the host plans them (ops/resize_backward.py::_plan)
+// so that the tables, two stages of g, the partials and the dx tile fit in
+// 72 KB (three CTAs an SM).  The CTAs are persistent and loop over the
+// tiles.  Each stages the band of its next tile with cp.async (4-byte
+// copies, one commit group a tile) while it reduces the current one, and
+// waits for it only at the next tile.  A staged g row lies at an odd pitch
+// in 4-byte words (a bf16 row shifted by the parity of its first element),
+// so that lanes on consecutive rows read one column from 32 banks; TMA
+// copies 16-byte aligned rows, whose pitch would put 4 of those lanes on
+// one bank.  The dx tile is built in shared memory and copied out,
+// contiguous, with 16-byte stores.
 //
-// One at a time is far from the byte bound on wide tables but far ahead of
-// PyTorch's atomic backward.  At DeepLabV3's train-step shapes on an H100
-// (16 x 512^2): its 8x logits (16 x 16 taps an element) 0.15-0.17 ms
-// against a bound of 0.005-0.010 and PyTorch's 0.38-1.6; its ASPP image
-// pool, a 1 x 1 input read by all 64 x 64 outputs, 0.68-0.72 ms against
-// 0.020-0.040 and 61-141 ms, where each thread runs 4096 taps in series,
-// 8192 threads on 32 SMs, each load of a warp in 32 planes.  A warp per
-// input element (lanes over the tap pairs, then a shuffle tree; in the git
-// history) took 0.086-0.089 ms at both.
+// Each pass sums an axis one of two ways (the host picks, per axis):
+// - by input index (kSums), where inputs have more than two taps (an
+//   upsample): a unit sums the taps of 4 input indices (4 columns of one
+//   row in the W pass, the rows on consecutive lanes; 4 rows of one column
+//   in the H pass, the columns on consecutive lanes), interleaved, with the
+//   weights read from a table in shared memory 4 at a time;
+// - by a scan over the outputs (kScan), where no input has more than two
+//   taps (a downsample): a unit walks the outputs that read a chunk of
+//   input indices, reads each once, and carries the running sums of two
+//   inputs, storing each input's sum when the scan has passed its taps.
+// A 1-pixel input read by a whole plane (DeepLabV3's image pool: 1 x 1 ->
+// 80 x 80) is split the same way: each thread sums one output row's 80
+// column taps, then one thread the 80 row partials; no thread runs more
+// taps in series than one axis has.
 //
-// What bounds it on the card: bytes.  At SETR's largest upsample (8, 256,
-// 160, 160) -> (320, 320) in bf16 it must read g (420 MB) and write dx
-// (105 MB): 0.16 ms at 3.35 TB/s, against 16 multiply-adds per element of
-// dx.  Neighbouring threads share most of their taps, so a warp's loads
-// come from a few L1 lines and g is read from device memory about once.
-// It takes about 6x that bound on an H100: by count each element costs
-// about 300 instructions (16 taps, each an index, a weight and an element
-// of g to load, two products and a sum).  The separable form takes 4 + 4
-// taps: reducing along W into a float32 scratch in device memory moves
-// 1.36 GB at that shape, 2.6x this design's 0.53 GB, and with the scratch
-// in shared memory instead (a CTA of 8 x 32 input elements reducing the
-// output rows it reads, then its row taps) it measured 1.5x slower than
-// this design on the H100: each CTA waits on its loads between two
-// barriers.
+// What bounds it on the card: bytes.  It reads g once (a band's edge rows
+// twice, from the L2) and writes dx once; an upsample by s costs about
+// 2 + 2/s multiply-adds an element of g, far under the card's operations a
+// byte.  On an H100 the wide upsamples stay 2-7x over that bound
+// (PERF.md): the staging alone runs at it, and the two passes, which each
+// CTA runs after its staging, issue slowly.  Indices are 32-bit inside a
+// tile and 64-bit across the tensor.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 2;
+// the input columns of a W pass unit and the input rows of an H pass unit
+// that sum their taps (kSums) together
+constexpr int kCols = 4, kRows = 4;
 
-// one axis's table: input index i reads output indices idx[i * taps + a]
-// (ascending, then -1) with weights w[i * taps + a]
+// n / d for 0 <= n < 2^31 by a multiply and a shift (PyTorch's IntDivider;
+// the host computes m and s: ops/resize_backward.py::_fastdiv)
+struct FastDiv {
+  uint32_t m, s;
+};
+
+__device__ __forceinline__ int divide(const FastDiv& f, int n) {
+  return (int)((__umulhi((uint32_t)n, f.m) + (uint32_t)n) >> f.s);
+}
+
+// One axis's tables and how its pass sums: by input index (kSums) or by a
+// scan over the output indices (kScan); ops/resize_backward.py::_axis.
+// `table` is copied to shared memory at the start.
+enum Method { kSums = 0, kScan = 1 };
 struct Axis {
-  const int* idx;
-  const float* w;
-  int taps;
+  int method;
+  // kSums: a row of `stride` ints (a multiple of 4) for each input index:
+  // its first output index, its number of taps, 2 ints of padding, then
+  // the taps' float32 weights' bits.  kScan: 4 ints for each output
+  // index: the lower input index it reads, that input's weight, the next
+  // input's weight (0: none), 0; weights as float bits.
+  const int* table;
+  int table_words;
+  int stride;
+  // kScan: per chunk of `chunk` input indices, the first output index
+  // that reads one of them and one past the last
+  const int2* spans;
+  int chunk;  // input indices a unit takes: kCols / kRows, or the chunk
+};
+
+struct Params {
+  int planes, in_h, in_w, out_h, out_w;
+  Axis rows, cols;
+  // per band: first g row, g rows, and its tile's g rows (tile_planes
+  // planes) as a FastDiv's m and s; last_w_div for the last tile's planes
+  // where they are fewer
+  const int4* bands;
+  int nbands, band_rows, tile_planes, ntiles;
+  FastDiv last_w_div;
+  int rows_max;  // the most g rows of a band
+  int g_pitch;   // 4-byte words a staged g row, odd
+  int h_pitch;   // floats a partial row, odd
+  FastDiv in_w_div;
+  FastDiv plane_units_div;  // H pass row units of a whole plane
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -90,120 +138,434 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float tap(float acc, float wr, float wc,
-                                     float g) {
-  return __fadd_rn(acc, __fmul_rn(__fmul_rn(wr, wc), g));
+// acc + w * x, each step rounded (no fused multiply-add)
+__device__ __forceinline__ float tap(float acc, float w, float x) {
+  return __fadd_rn(acc, __fmul_rn(w, x));
 }
 
-// kTaps: the most taps of an input index on either axis (4 or 8), or 0
-// for any number, taken one at a time
-template <typename T, int kTaps>
-__global__ void __launch_bounds__(kThreads)
-resize_backward_kernel(const T* __restrict__ g, T* __restrict__ dx,
-                       int total, int in_h, int in_w, int out_h, int out_w,
-                       Axis rows, Axis cols) {
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const int j = t % in_w;
-  const int i = t / in_w % in_h;
-  const T* plane = g + (int64_t)(t / in_w / in_h) * out_h * out_w;
-  const int* ri = rows.idx + i * rows.taps;
-  const float* rw = rows.w + i * rows.taps;
-  const int* ci = cols.idx + j * cols.taps;
-  const float* cw = cols.w + j * cols.taps;
-  float acc = 0.f;
-  if constexpr (kTaps == 0) {
-    for (int a = 0; a < rows.taps; ++a) {
-      const int r = __ldg(ri + a);
-      if (r < 0) break;
-      const float wr = __ldg(rw + a);
-      const T* row = plane + r * out_w;
-      for (int b = 0; b < cols.taps; ++b) {
-        const int c = __ldg(ci + b);
-        if (c < 0) break;
-        acc = tap(acc, wr, __ldg(cw + b), to_float(row[c]));
-      }
-    }
-  } else {
-    const T* row[kTaps];
-    float wr[kTaps], wc[kTaps], v[kTaps][kTaps];
-    int col[kTaps];
-    bool row_in[kTaps], col_in[kTaps];
+// kSums: kN input indices' sums at once, each over its taps in ascending
+// order: sum[k] = sum over b < n[k] of w[k][b] * v[k][b * step].  w[k] is
+// a 16-byte aligned row of weights in shared memory, read four at a time;
+// the outputs that read one input index are consecutive.  The kN sums'
+// loads and adds interleave, so a thread keeps kN chains in flight.
+template <int kN, typename T>
+__device__ __forceinline__ void sums(float (&sum)[kN],
+                                     const float* const (&w)[kN],
+                                     const T* const (&v)[kN],
+                                     const int (&n)[kN], int step) {
+  int most = 0;
 #pragma unroll
-    for (int a = 0; a < kTaps; ++a) {
-      const int r = a < rows.taps ? __ldg(ri + a) : -1;
-      row_in[a] = r >= 0;
-      row[a] = plane + (row_in[a] ? r : 0) * out_w;
-      wr[a] = row_in[a] ? __ldg(rw + a) : 0.f;
-    }
-#pragma unroll
-    for (int b = 0; b < kTaps; ++b) {
-      const int c = b < cols.taps ? __ldg(ci + b) : -1;
-      col_in[b] = c >= 0;
-      col[b] = col_in[b] ? c : 0;
-      wc[b] = col_in[b] ? __ldg(cw + b) : 0.f;
-    }
-#pragma unroll
-    for (int a = 0; a < kTaps; ++a)
-#pragma unroll
-      for (int b = 0; b < kTaps; ++b)
-        v[a][b] = row_in[a] && col_in[b] ? to_float(row[a][col[b]]) : 0.f;
-#pragma unroll
-    for (int a = 0; a < kTaps; ++a)
-#pragma unroll
-      for (int b = 0; b < kTaps; ++b)
-        if (row_in[a] && col_in[b]) acc = tap(acc, wr[a], wc[b], v[a][b]);
+  for (int k = 0; k < kN; ++k) {
+    sum[k] = 0.f;
+    most = max(most, n[k]);
   }
-  dx[t] = from_float<T>(acc);
+  for (int b = 0; b < most; b += 4) {
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      if (b >= n[k]) continue;
+      const float4 w4 = *reinterpret_cast<const float4*>(w[k] + b);
+      const float ws[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (b + e < n[k])
+          sum[k] = tap(sum[k], ws[e], to_float(v[k][(b + e) * step]));
+    }
+  }
 }
+
+// kScan: the sums of input indices [i0, i1), each over its taps in
+// ascending order, store(i, sum) for each.  Output o is v[(o - base) *
+// step]; it reads inputs taps[o].x (weight .y) and taps[o].x + 1 (weight
+// .z, if not 0).  The scan walks o over span = the outputs that read an
+// input of [i0, i1), reading each value once, with the running sums of the
+// input it has reached and the next; an input's sum is stored once the
+// scan has passed its last tap.  Where each input has one or two taps (a
+// downsample) it reads and writes each value once, where the sums read
+// each output once a tap and each input's table.
+template <typename T, typename Store>
+__device__ __forceinline__ void scan(const T* __restrict__ v, int base,
+                                     int step,
+                                     const int4* __restrict__ taps,
+                                     int2 span, int i0, int i1,
+                                     Store store) {
+  float acc0 = 0.f, acc1 = 0.f;  // the sums of inputs ic and ic + 1
+  int ic = i0;
+  for (int o = span.x; o < span.y; ++o) {
+    const int4 t = taps[o];
+    const float x = to_float(v[(o - base) * step]);
+    for (; ic < t.x; ++ic) {
+      if (ic < i1) store(ic, acc0);
+      acc0 = acc1;
+      acc1 = 0.f;
+    }
+    if (t.x == ic) {
+      acc0 = tap(acc0, __int_as_float(t.y), x);
+      if (t.z != 0) acc1 = tap(acc1, __int_as_float(t.z), x);
+    } else if (t.z != 0) {  // t.x == ic - 1: o's second input is ic
+      acc0 = tap(acc0, __int_as_float(t.z), x);
+    }
+  }
+  for (; ic < i1; ++ic) {
+    store(ic, acc0);
+    acc0 = acc1;
+    acc1 = 0.f;
+  }
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// a tile's planes, input rows and g band
+struct Tile {
+  int plane0, planes, i_lo, in_rows, o_lo, o_rows;
+  int64_t g_row0;  // its first g row, counted over all planes
+  FastDiv w_div;   // its g rows, planes * o_rows
+};
+
+__device__ __forceinline__ Tile tile_at(const Params& p, int t) {
+  Tile tile;
+  const int group = t / p.nbands, b = t - group * p.nbands;
+  tile.plane0 = group * p.tile_planes;
+  tile.planes = min(p.tile_planes, p.planes - tile.plane0);
+  tile.i_lo = b * p.band_rows;
+  tile.in_rows = min(p.band_rows, p.in_h - tile.i_lo);
+  const int4 band = __ldg(p.bands + b);
+  tile.o_lo = band.x;
+  tile.o_rows = band.y;
+  tile.g_row0 = (int64_t)tile.plane0 * p.out_h + band.x;
+  tile.w_div = tile.planes == p.tile_planes
+                   ? FastDiv{(uint32_t)band.z, (uint32_t)band.w}
+                   : p.last_w_div;
+  return tile;
+}
+
+// the shift, in elements, of a staged g row: a bf16 row is copied from the
+// 4-byte word that holds its first element
+template <typename T>
+__device__ __forceinline__ int row_shift(const Params& p, int64_t g_row) {
+  return sizeof(T) == 4 ? 0 : (int)((g_row * p.out_w) & 1);
+}
+
+// Issue the cp.async copies of a tile's g band into a stage: warps over
+// rows, lanes over a row's 4-byte words.  More planes than one are whole
+// planes, so the band is g rows g_row0 ... g_row0 + planes * o_rows - 1.
+// A bf16 row's first and last word may hold an element of a neighbouring
+// row or lie past the tensor's last element; such a word is 4-byte
+// aligned and holds an element of g, so it lies in g's allocation.
+template <typename T>
+__device__ void stage_band(const T* __restrict__ g, uint32_t stage,
+                           const Params& p, const Tile& tile) {
+  const int rows = tile.planes * tile.o_rows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < rows; r += kWarps) {
+    const int64_t e0 = (tile.g_row0 + r) * p.out_w;
+    const int shift = row_shift<T>(p, tile.g_row0 + r);
+    const char* src = reinterpret_cast<const char*>(g + (e0 - shift));
+    const int words = (int)(((p.out_w + shift) * sizeof(T) + 3) / 4);
+    const uint32_t dst = stage + 4u * (uint32_t)(r * p.g_pitch);
+    for (int k = lane; k < words; k += 32) cp_async4(dst + 4 * k, src + 4 * k);
+  }
+}
+
+// The W pass: h[r, j] = sum over the column taps p of j (ascending) of
+// w * g[r, p].  A unit is one staged row and cols.chunk columns, the rows
+// on consecutive lanes; cols is the column table in shared memory.
+template <typename T>
+__device__ void w_pass(const float* __restrict__ stage, float* __restrict__ h,
+                       const int* __restrict__ cols, const Params& p,
+                       const Tile& tile) {
+  const int rows = tile.planes * tile.o_rows;
+  const int units = rows * ((p.in_w + p.cols.chunk - 1) / p.cols.chunk);
+  for (int u = threadIdx.x; u < units; u += kThreads) {
+    const int c = divide(tile.w_div, u), r = u - c * rows;
+    const T* row = reinterpret_cast<const T*>(stage + r * p.g_pitch) +
+                   row_shift<T>(p, tile.g_row0 + r);
+    float* out = h + r * p.h_pitch;
+    const int j0 = c * p.cols.chunk;
+    if (p.cols.method == kScan) {
+      scan(row, 0, 1, reinterpret_cast<const int4*>(cols),
+           __ldg(p.cols.spans + c), j0, min(j0 + p.cols.chunk, p.in_w),
+           [out](int j, float sum) { out[j] = sum; });
+      continue;
+    }
+    const float* w[kCols];
+    const T* v[kCols];
+    int n[kCols];
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      const int* taps = cols + min(j0 + k, p.in_w - 1) * p.cols.stride;
+      w[k] = reinterpret_cast<const float*>(taps + 4);
+      v[k] = row + taps[0];
+      n[k] = j0 + k < p.in_w ? taps[1] : 0;
+    }
+    float sum[kCols];
+    sums<kCols>(sum, w, v, n, 1);
+#pragma unroll
+    for (int k = 0; k < kCols; ++k)
+      if (j0 + k < p.in_w) out[j0 + k] = sum[k];
+  }
+}
+
+// The H pass: dx[i, j] = sum over the row taps o of i (ascending) of
+// w * h[o, j], in g's dtype into the tile's dx buffer at offset `shift`.
+// A unit is one column and rows.chunk input rows of the tile, the columns
+// on consecutive lanes; rows_table is the row table in shared memory.
+template <typename T>
+__device__ void h_pass(const float* __restrict__ h, T* __restrict__ out,
+                       int shift, const int* __restrict__ rows_table,
+                       const Params& p, const Tile& tile) {
+  const int chunk = p.rows.chunk;
+  const int units = (tile.in_rows + chunk - 1) / chunk;
+  const int n_units = tile.planes * units * p.in_w;
+  for (int v = threadIdx.x; v < n_units; v += kThreads) {
+    const int t = divide(p.in_w_div, v), j = v - t * p.in_w;
+    int q = 0, kc = t;
+    if (p.tile_planes > 1) {  // whole planes: in_rows == in_h
+      q = divide(p.plane_units_div, t);
+      kc = t - q * units;
+    }
+    // g row o of plane q is h row q * o_rows + o - o_lo; input row i is
+    // row q * in_rows + i - i_lo of the dx tile
+    const float* col = h + q * tile.o_rows * p.h_pitch + j;
+    T* dst = out + shift + q * tile.in_rows * p.in_w + j;
+    const int i0 = tile.i_lo + kc * chunk;
+    const int i1 = min(i0 + chunk, tile.i_lo + tile.in_rows);
+    if (p.rows.method == kScan) {
+      const int i_lo = tile.i_lo, in_w = p.in_w;
+      scan(col, tile.o_lo, p.h_pitch,
+           reinterpret_cast<const int4*>(rows_table),
+           __ldg(p.rows.spans + i0 / chunk), i0, i1,
+           [dst, i_lo, in_w](int i, float sum) {
+             dst[(i - i_lo) * in_w] = from_float<T>(sum);
+           });
+      continue;
+    }
+    const float* w[kRows];
+    const float* x[kRows];
+    int n[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      const int* taps = rows_table + min(i0 + k, i1 - 1) * p.rows.stride;
+      w[k] = reinterpret_cast<const float*>(taps + 4);
+      x[k] = col + max(taps[0] - tile.o_lo, 0) * p.h_pitch;
+      n[k] = i0 + k < i1 ? taps[1] : 0;
+    }
+    float sum[kRows];
+    sums<kRows>(sum, w, x, n, p.h_pitch);
+#pragma unroll
+    for (int k = 0; k < kRows; ++k)
+      if (i0 + k < i1)
+        dst[(i0 + k - tile.i_lo) * p.in_w] = from_float<T>(sum[k]);
+  }
+}
+
+// copy the tile's dx (contiguous in dx from element e0) out of shared
+// memory, 16 bytes a store where a whole aligned 16 bytes are the tile's
+template <typename T>
+__device__ void copy_out(const T* tile_dx, int shift, T* __restrict__ dx,
+                         int64_t e0, int n) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int chunks = (shift + n + kVec - 1) / kVec;
+  for (int c = threadIdx.x; c < chunks; c += kThreads) {
+    const int lo = c * kVec - shift;
+    if (lo >= 0 && lo + kVec <= n) {
+      *reinterpret_cast<uint4*>(dx + e0 + lo) =
+          *reinterpret_cast<const uint4*>(tile_dx + c * kVec);
+    } else {
+      for (int e = max(lo, 0); e < min(lo + kVec, n); ++e)
+        dx[e0 + e] = tile_dx[shift + e];
+    }
+  }
+}
+
+// the shared memory's layout, in 4-byte words: the row and column tables,
+// kStages stages of g, the partials, then the dx tile, 16-byte aligned
+// (and 16 bytes for its shift); ops/resize_backward.py::_smem_bytes is the
+// same
+struct Layout {
+  int tables, stage, h;
+  __host__ __device__ explicit Layout(const Params& p)
+      : tables(p.rows.table_words + p.cols.table_words),
+        stage(p.tile_planes * p.rows_max * p.g_pitch),
+        h(p.tile_planes * p.rows_max * p.h_pitch) {}
+  __host__ __device__ int dx_offset() const {
+    return (tables + kStages * stage + h + 3) & ~3;
+  }
+};
 
 template <typename T>
-int launch(const void* g, void* dx, int total, int in_h, int in_w,
-           int out_h, int out_w, Axis rows, Axis cols, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  const auto* gt = static_cast<const T*>(g);
-  auto* dxt = static_cast<T*>(dx);
-  const int taps = rows.taps > cols.taps ? rows.taps : cols.taps;
-  if (taps <= 4)
-    resize_backward_kernel<T, 4><<<blocks, kThreads, 0, stream>>>(
-        gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
-  else if (taps <= 8)
-    resize_backward_kernel<T, 8><<<blocks, kThreads, 0, stream>>>(
-        gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
-  else
-    resize_backward_kernel<T, 0><<<blocks, kThreads, 0, stream>>>(
-        gt, dxt, total, in_h, in_w, out_h, out_w, rows, cols);
+__global__ void __launch_bounds__(kThreads)
+resize_backward_kernel(const T* __restrict__ g, T* __restrict__ dx,
+                       const Params p) {
+  extern __shared__ uint4 smem[];
+  const Layout layout(p);
+  int* rows_table = reinterpret_cast<int*>(smem);
+  int* cols_table = rows_table + p.rows.table_words;
+  for (int k = threadIdx.x; k < layout.tables; k += kThreads)
+    rows_table[k] = k < p.rows.table_words
+                        ? __ldg(p.rows.table + k)
+                        : __ldg(p.cols.table + (k - p.rows.table_words));
+  float* stages = reinterpret_cast<float*>(smem) + layout.tables;
+  float* h = stages + kStages * layout.stage;
+  T* tile_dx =
+      reinterpret_cast<T*>(reinterpret_cast<float*>(smem) + layout.dx_offset());
+  const uint32_t stage0 = (uint32_t)__cvta_generic_to_shared(stages);
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    const int t = blockIdx.x + s * gridDim.x;
+    if (t < p.ntiles)
+      stage_band(g, stage0 + 4u * (uint32_t)(s * layout.stage), p,
+                 tile_at(p, t));
+    cp_async_commit();
+  }
+  int k = 0;
+  for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x, ++k) {
+    const int ahead = t + (kStages - 1) * gridDim.x;
+    if (ahead < p.ntiles)
+      stage_band(g,
+                 stage0 + 4u * (uint32_t)(((k + kStages - 1) % kStages) *
+                                          layout.stage),
+                 p, tile_at(p, ahead));
+    cp_async_commit();
+    const Tile tile = tile_at(p, t);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();  // the band is in; the last tile's dx is out
+    w_pass<T>(stages + (k % kStages) * layout.stage, h, cols_table, p,
+              tile);
+    __syncthreads();
+    const int64_t e0 =
+        ((int64_t)tile.plane0 * p.in_h + tile.i_lo) * p.in_w;
+    const int shift = (int)(e0 % (16 / (int)sizeof(T)));
+    h_pass<T>(h, tile_dx, shift, rows_table, p, tile);
+    __syncthreads();
+    copy_out<T>(tile_dx, shift, dx, e0,
+                tile.planes * tile.in_rows * p.in_w);
+  }
+  cp_async_wait<0>();
+}
+
+// The launch's shared memory and grid: the CTAs that fit the card's SMs
+// at that shared memory, queried once for each size and device, where
+// the kernel's shared-memory limit is raised too
+template <typename T>
+int launch(const void* g, void* dx, const Params& p, cudaStream_t stream) {
+  const auto kernel = resize_backward_kernel<T>;
+  const int smem = 4 * Layout(p).dx_offset() +
+                   p.tile_planes * p.band_rows * p.in_w * (int)sizeof(T) +
+                   16;
+  static std::mutex mutex;
+  static int limit = 0, last_smem = -1, last_device = -1, ctas = 0;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  int blocks;
+  {
+    std::lock_guard<std::mutex> lock(mutex);
+    if (smem > limit) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      limit = smem;
+    }
+    if (smem != last_smem || device != last_device) {
+      int sms, per_sm;
+      if ((err = cudaDeviceGetAttribute(
+               &sms, cudaDevAttrMultiProcessorCount, device)) !=
+              cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+        return (int)err;
+      last_smem = smem;
+      last_device = device;
+      ctas = sms * max(per_sm, 1);
+    }
+    blocks = min(p.ntiles, ctas);
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(static_cast<const T*>(g),
+                                             static_cast<T*>(dx), p);
   return (int)cudaGetLastError();
+}
+
+Axis make_axis(int method, const void* table, int table_words, int stride,
+               const void* spans, int chunk) {
+  return Axis{method, static_cast<const int*>(table), table_words, stride,
+              static_cast<const int2*>(spans), chunk};
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Pointers are device pointers: g
-// is a contiguous (planes, out_h, out_w) tensor, dx a contiguous
-// (planes, in_h, in_w) one of the same dtype (0 float32, 1 bfloat16), each
-// of fewer than 2^31 elements.  Each axis's table is an (in, taps) int32
-// index table padded with -1 and its float32 weights.  Returns the
-// cudaError_t of the launch (0 on success).
+// is a contiguous (planes, out_h, out_w) tensor, 4-byte aligned, dx a
+// contiguous (planes, in_h, in_w) one, 16-byte aligned, of the same dtype
+// (0 float32, 1 bfloat16), each of fewer than 2^31 elements.  Per axis
+// (rows, then columns; ops/resize_backward.py::_axis): the method
+// (0 sums, 1 scan), its table and the table's ints, the sums table's
+// stride, the scan's spans and the input indices a unit takes; bands an
+// (nbands, 4) int32 array: each band's first g row, g rows and W divisor
+// (m, s) for tile_planes planes; the rest is the host's plan
+// (ops/resize_backward.py::_plan).  Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" {
 
-int resize_backward_bilinear(const void* g, void* dx, int dtype,
-                             int64_t planes, int in_h, int in_w, int out_h,
-                             int out_w, const int* row_idx, const float* row_w,
-                             int row_taps, const int* col_idx,
-                             const float* col_w, int col_taps, void* stream) {
-  const int64_t total = planes * in_h * in_w;
-  if (total == 0) return 0;
-  if (total > 0x7fffffff || planes * out_h * out_w > 0x7fffffff)
+int resize_backward_bilinear(
+    const void* g, void* dx, int dtype, int64_t planes, int in_h, int in_w,
+    int out_h, int out_w, int row_method, const void* row_table,
+    int row_words, int row_stride, const void* row_spans, int row_chunk,
+    int col_method, const void* col_table, int col_words, int col_stride,
+    const void* col_spans, int col_chunk, const void* bands, int nbands,
+    uint32_t last_w_m, uint32_t last_w_s, int band_rows, int tile_planes,
+    int rows_max, int g_pitch, int h_pitch, uint32_t in_w_m, uint32_t in_w_s,
+    uint32_t plane_units_m, uint32_t plane_units_s, void* stream) {
+  if (planes * in_h * in_w == 0) return 0;
+  if (planes * in_h * in_w > 0x7fffffff ||
+      planes * out_h * out_w > 0x7fffffff ||
+      (reinterpret_cast<uintptr_t>(g) & 3) ||
+      (reinterpret_cast<uintptr_t>(dx) & 15) || tile_planes < 1 ||
+      band_rows < 1 || row_chunk < 1 || col_chunk < 1 ||
+      (row_method == kSums && (row_chunk != kRows || row_stride % 4)) ||
+      (col_method == kSums && (col_chunk != kCols || col_stride % 4)) ||
+      (tile_planes > 1 && band_rows != in_h) ||
+      (row_method == kScan && band_rows < in_h && band_rows % row_chunk))
     return (int)cudaErrorInvalidValue;
-  const Axis rows{row_idx, row_w, row_taps}, cols{col_idx, col_w, col_taps};
+  Params p;
+  p.planes = (int)planes;
+  p.in_h = in_h;
+  p.in_w = in_w;
+  p.out_h = out_h;
+  p.out_w = out_w;
+  p.rows = make_axis(row_method, row_table, row_words, row_stride, row_spans,
+                     row_chunk);
+  p.cols = make_axis(col_method, col_table, col_words, col_stride, col_spans,
+                     col_chunk);
+  p.bands = static_cast<const int4*>(bands);
+  p.nbands = nbands;
+  p.band_rows = band_rows;
+  p.tile_planes = tile_planes;
+  p.ntiles = (int)((planes + tile_planes - 1) / tile_planes) * nbands;
+  p.last_w_div = FastDiv{last_w_m, last_w_s};
+  p.rows_max = rows_max;
+  p.g_pitch = g_pitch;
+  p.h_pitch = h_pitch;
+  p.in_w_div = FastDiv{in_w_m, in_w_s};
+  p.plane_units_div = FastDiv{plane_units_m, plane_units_s};
   const cudaStream_t s = (cudaStream_t)stream;
-  const int n = (int)total;
   switch (dtype) {
     case 0:
-      return launch<float>(g, dx, n, in_h, in_w, out_h, out_w, rows, cols, s);
+      return launch<float>(g, dx, p, s);
     case 1:
-      return launch<__nv_bfloat16>(g, dx, n, in_h, in_w, out_h, out_w, rows,
-                                   cols, s);
+      return launch<__nv_bfloat16>(g, dx, p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -59,7 +59,7 @@ from ..ops.resize_backward import resize_backward
 
 
 class BilinearResize(torch.autograd.Function):
-    """``F.interpolate(x, size, mode="bilinear")`` with the gather backward
+    """``F.interpolate(x, size, mode="bilinear")`` with the separable backward
     of ``ops/resize_backward.py``."""
 
     @staticmethod
@@ -77,7 +77,14 @@ class BilinearResize(torch.autograd.Function):
 
 def _interpolate(x, size, mode, align_corners, scales):
     """``F.interpolate`` to ``size``, or by the user's ``scales`` (whose
-    output size is ``size``)."""
+    output size is ``size``).  A bf16 bilinear resize on the CPU runs in
+    float32 and rounds once, as the JAX resize does (and
+    ``F.interpolate``'s CUDA kernel): the CPU kernel rounds some bf16 lerps
+    otherwise (a 6 x 6 map to 80 x 80)."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu" \
+            and mode == "bilinear":
+        return _interpolate(x.float(), size, mode, align_corners,
+                            scales).to(x.dtype)
     if scales is None:
         return F.interpolate(x, size=size, mode=mode,
                              align_corners=align_corners)

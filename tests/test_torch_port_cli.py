@@ -1,7 +1,8 @@
 """The PyTorch port's train and val CLIs against the JAX package, on the CPU.
 
 ``configs/network/fcn/fcn_r18_synthetic.py`` on a synthetic dataset of 16
-train and 8 val items at 160² (the synthetic YAMLs), the schedule's
+train and 8 val items at 96² (copies of the synthetic YAMLs, which resize
+to 160²; the Mask2Former comparisons run at their 160²), the schedule's
 ``deterministic=True``, SGD with StepLR, 2 steps an epoch.  Each CLI runs
 in this process through ``main(argv)`` with ``--device cpu``; the global
 state it sets (determinism, seeds, the compute policy) is restored after.
@@ -76,14 +77,18 @@ from image_segmentation_lab_tpu_torch.core.mixed_precision import \
     policy  # noqa: E402
 
 NETWORK = "configs/network/fcn/fcn_r18_synthetic.py"
+TRAIN_YAML = "configs/augmentation/synthetic_train_transform.yaml"
 VAL_YAML = "configs/augmentation/synthetic_val_transform.yaml"
-DATASET = f"""
+DATASET = """
 dataset = dict(
-    train=dict(type='SyntheticDataset', length=16, image_size=(160, 160),
-               pipeline='configs/augmentation/synthetic_train_transform.yaml'),
-    val=dict(type='SyntheticDataset', length=8, image_size=(160, 160),
-             seed=1, return_ori_seg_gt=True, pipeline='{VAL_YAML}'))
+    train=dict(type='SyntheticDataset', length=16, image_size=({0}, {0}),
+               pipeline='{1}'),
+    val=dict(type='SyntheticDataset', length=8, image_size=({0}, {0}),
+             seed=1, return_ori_seg_gt=True, pipeline='{2}'))
 """
+# the FCN runs' images: the synthetic YAMLs' 160² cut to 96² in copies
+# (their Resize), which the CLIs and JAX see alike
+SIZE = 96
 SCHEDULE = """
 seed = 0
 deterministic = True
@@ -121,7 +126,14 @@ def runs(tmp_path_factory, restore_globals):
     ``resumed``, whose ``last.pth`` only the resume test reads, skip the
     validation (``--no-validate``), which changes no weight."""
     root = tmp_path_factory.mktemp("cli")
-    (root / "dataset.py").write_text(DATASET)
+    yamls = []
+    for name in (TRAIN_YAML, VAL_YAML):
+        copy = root / os.path.basename(name)
+        copy.write_text(open(name).read().replace(
+            "height: 160\n    width: 160",
+            f"height: {SIZE}\n    width: {SIZE}", 1))
+        yamls.append(copy)
+    (root / "dataset.py").write_text(DATASET.format(SIZE, *yamls))
     (root / "schedule.py").write_text(SCHEDULE)
     common = ["--network-cfg", NETWORK, "--dataset-cfg",
               str(root / "dataset.py"), "--schedule-cfg",
@@ -207,8 +219,8 @@ def jax_scored(runs):
     """The JAX package's validation of the 1-epoch run's ``best.pth``."""
     network = load_python_config(NETWORK)["model"]
     jm = jax_build(network)
-    template = init_jax(jm, jnp.zeros((1, 160, 160, 3)),
-                        jnp.zeros((1, 160, 160), jnp.int32),
+    template = init_jax(jm, jnp.zeros((1, SIZE, SIZE, 3)),
+                        jnp.zeros((1, SIZE, SIZE), jnp.int32),
                         return_loss=True, train=True)
     variables, ckpt = jckpt.load_checkpoint(
         template, runs["weights"]["half"] / "best.pth", strict=True,
@@ -272,7 +284,7 @@ def test_whole_slice_scores_as_the_jax_package(runs, jax_scored):
     model = init_model(NETWORK, runs["weights"]["half"] / "best.pth",
                        device="cpu")
     from image_segmentation_lab_tpu_torch.train_state import make_eval_step
-    logits, _ = make_eval_step(model, (160, 160))(
+    logits, _ = make_eval_step(model, (SIZE, SIZE))(
         torch.from_numpy(np.transpose(np.asarray(img), (0, 3, 1, 2)).copy()),
         torch.from_numpy(np.array(gt)))
     for head, ref in ref_logits.items():
@@ -290,12 +302,13 @@ def test_inference_model_reads_a_png_through_the_val_yaml(runs, jax_scored,
     imwrite(image, path)
     model = init_model(NETWORK, runs["weights"]["half"] / "best.pth",
                        device="cpu")
-    pred = inference_model(model, str(path), pipeline=VAL_YAML)
+    val_yaml = str(runs["root"] / os.path.basename(VAL_YAML))
+    pred = inference_model(model, str(path), pipeline=val_yaml)
     ref = jinfer.inference_model(jinfer.InferenceModel(
-        jax_scored["jm"], jax_scored["variables"], {}), str(path), VAL_YAML)
+        jax_scored["jm"], jax_scored["variables"], {}), str(path), val_yaml)
     assert pred.shape == ref.shape == (120, 200)
     assert (pred == np.asarray(ref)).mean() >= 0.999
-    both = inference_model(model, [str(path), str(path)], pipeline=VAL_YAML)
+    both = inference_model(model, [str(path), str(path)], pipeline=val_yaml)
     np.testing.assert_array_equal(both[1], pred)
 
 
@@ -438,28 +451,39 @@ def test_dense_head_panoptic_matches_the_jax_cli(runs, monkeypatch,
 
 
 @pytest.fixture(scope="module")
-def mask2former_checkpoint(runs):
-    """A tiny Mask2Former checkpoint of seeded JAX-side weights, written by
-    the port (JAX layout)."""
-    path = runs["root"] / "tiny_mask2former.py"
+def tiny_mask2former(tmp_path_factory):
+    """``TINY_MASK2FORMER``: its config file, the JAX module, seeded
+    JAX-side variables and the port's model bridged from them."""
+    path = tmp_path_factory.mktemp("mask2former") / "tiny_mask2former.py"
     path.write_text(TINY_MASK2FORMER)
     network = load_python_config(path)["model"]
-    variables = init_jax(jax_build(network), jnp.zeros((1, 160, 160, 3)),
+    jm = jax_build(network)
+    variables = init_jax(jm, jnp.zeros((1, 160, 160, 3)),
                          jnp.zeros((1, 160, 160), jnp.int32),
                          method="forward_train", train=False)
     from image_segmentation_lab_tpu_torch.models.builder import \
         build_segmentor
     model = bridge(build_segmentor(network), variables)
+    return path, jm, variables, model
+
+
+@pytest.fixture(scope="module")
+def mask2former_checkpoint(runs, tiny_mask2former):
+    """A tiny Mask2Former checkpoint of seeded JAX-side weights, written by
+    the port (JAX layout)."""
+    path, _, variables, model = tiny_mask2former
     checkpoint.save_checkpoint(model, runs["root"] / "mask2former.pth",
                                metadata={"epoch": 0})
-    return path, runs["root"] / "mask2former.pth", variables
+    dataset = runs["root"] / "mask2former_dataset.py"
+    dataset.write_text(DATASET.format(160, TRAIN_YAML, VAL_YAML))
+    return path, runs["root"] / "mask2former.pth", variables, dataset
 
 
 def test_mask2former_panoptic_and_instances_match_the_jax_cli(
         runs, mask2former_checkpoint, monkeypatch, tmp_path):
-    network, ckpt, variables = mask2former_checkpoint
+    network, ckpt, variables, dataset = mask2former_checkpoint
     port, ref = run_both_val_clis(
-        monkeypatch, network, runs["root"] / "dataset.py", ckpt, tmp_path,
+        monkeypatch, network, dataset, ckpt, tmp_path,
         ["--panoptic", "--instances", "--score",
          "--object-mask-threshold", "0.0", "--overlap-threshold", "0.0"],
         variables)
@@ -486,9 +510,9 @@ def test_mask2former_panoptic_tta_matches_the_jax_cli(
         runs, mask2former_checkpoint, monkeypatch, tmp_path):
     """The view-averaged query competition: one scale (0.75, so the mask
     probabilities are resized back to the image) and both flips."""
-    network, ckpt, variables = mask2former_checkpoint
+    network, ckpt, variables, dataset = mask2former_checkpoint
     port, ref = run_both_val_clis(
-        monkeypatch, network, runs["root"] / "dataset.py", ckpt, tmp_path,
+        monkeypatch, network, dataset, ckpt, tmp_path,
         ["--panoptic", "--tta", "--tta-scales", "0.75",
          "--object-mask-threshold", "0.0", "--overlap-threshold", "0.0"],
         variables)
@@ -498,3 +522,79 @@ def test_mask2former_panoptic_tta_matches_the_jax_cli(
     per_class = got["panoptic"]["per_class"]
     assert sum(per_class["TP"]) + sum(per_class["FP"]) > 0
     assert_same_pngs(port / "panoptic", ref / "panoptic")
+
+
+# Two queries whose score-weighted mask probabilities lie this many float32
+# ulps apart (of the larger) are a tie: either package may pick either.
+# The packages' mask probabilities agree to about 1e-5 (some 300 ulps at
+# 0.26); the tie below is 0-3 ulps wide in JAX and 1 in the port
+TIE_ULPS = 8
+
+
+def test_mask2former_panoptic_tta_ties_within_ulps(tiny_mask2former):
+    """``--panoptic --tta`` at scale 0.75 and both flips on the 96² val
+    split (the val YAML resizes to 160², the 0.75 view is 120²), image 7,
+    module by module: the port's ``panoptic_tta_probs`` and
+    ``panoptic_from_probs`` on the JAX pipeline's image against the JAX
+    package's, composed as the JAX val CLI composes them and compiled as
+    the CLI tests compile it (its flip outside the program).  At pixel
+    (48, 112) queries 4 and 6 tie: their score-weighted mask probabilities
+    lie within ``TIE_ULPS`` float32 ulps in both packages (the mask
+    probabilities agree to about 1e-5, so the winner is either's), and the
+    packages may pick different winners there.  Every other pixel has the
+    same winner, and the labels and kept queries are equal."""
+    from image_segmentation_lab_tpu.models.decode_heads.maskformer_head \
+        import panoptic_from_probs as jax_panoptic_from_probs
+    from image_segmentation_lab_tpu.utils.ops import resize as jax_resize
+    from image_segmentation_lab_tpu_torch.models.decode_heads.\
+        maskformer_head import panoptic_from_probs
+    from image_segmentation_lab_tpu_torch.utils.ops import resize
+    _, jm, variables, model = tiny_mask2former
+    dataset = jbuild_from_cfg(dict(
+        type='SyntheticDataset', length=8, image_size=(96, 96), seed=1,
+        return_ori_seg_gt=True, pipeline=VAL_YAML), JDATASET)
+    img, gt, _ = dataset.collate_fn([dataset[7]])
+    img, _ = dataset.device_pipeline(jax.random.PRNGKey(1), img, gt)
+    thresholds = dict(object_mask_threshold=0.0, overlap_threshold=0.0)
+
+    # the view's probabilities, flipped back where the view was flipped
+    # (one program for both views, which have one shape)
+    view = quick_jit(lambda v, x: jm.apply(v, x, out_size=(160, 160),
+                                           method="panoptic_tta_probs"))
+    scaled = quick_jit(lambda x: jax_resize(
+        x, size=(120, 120), mode="bilinear", align_corners=False))(img)
+    (p0, m0), (p1, m1) = view(variables, scaled), view(
+        variables, scaled[:, :, ::-1, :])
+    jp, jmask = np.asarray((p0 + p1) / 2), np.asarray(
+        (m0 + m1[:, :, :, ::-1]) / 2)
+    jq, jl, jk = (np.asarray(a) for a in jax_panoptic_from_probs(
+        jp, jmask, **thresholds))
+    x = torch.from_numpy(np.transpose(np.asarray(img), (0, 3, 1, 2)).copy())
+    with torch.no_grad():
+        scaled = resize(x, size=(120, 120), mode="bilinear",
+                        align_corners=False)
+        views = [model.panoptic_tta_probs(scaled.flip(3) if flip else scaled,
+                                          out_size=(160, 160), flip=flip)
+                 for flip in (False, True)]
+        pp, pmask = ((views[0][i] + views[1][i]) / 2 for i in (0, 1))
+        pq, pl, pk = (t.numpy() for t in panoptic_from_probs(pp, pmask,
+                                                             **thresholds))
+    np.testing.assert_array_equal(pl, jl)
+    np.testing.assert_array_equal(pk, jk)
+
+    def weighted(probs, mask, b, y, x):
+        return np.float32(mask[b, :, y, x]) * probs[b, :, :-1].max(-1)
+
+    def within(w, q0, q1):
+        return abs(w[q0] - w[q1]) <= TIE_ULPS * np.spacing(max(w[q0], w[q1]))
+
+    pp, pmask = pp.numpy(), pmask.numpy()
+    for w in (weighted(jp, jmask, 0, 48, 112),
+              weighted(pp, pmask, 0, 48, 112)):
+        assert np.argsort(w)[-2:].tolist() in ([4, 6], [6, 4])
+        assert within(w, 4, 6)
+    for b, y, x in zip(*np.nonzero(pq != jq)):
+        q0, q1 = jq[b, y, x], pq[b, y, x]
+        assert within(weighted(jp, jmask, b, y, x), q0, q1), (y, x)
+        assert within(weighted(pp, pmask, b, y, x), q0, q1), (y, x)
+    assert (pq != jq).sum() <= 1

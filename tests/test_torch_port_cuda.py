@@ -435,7 +435,8 @@ def test_bf16_resize_forward_is_the_float32_forward_rounded_once(cuda):
 
 
 # the resize backward kernel: SETR's six upsamples, a ragged upsample, a
-# downsample, align_corners, and a 1-pixel input (the ASPP image pool)
+# downsample, align_corners, and a 1-pixel input (the ASPP image pool);
+# (N, C, H, W), output size, align_corners[, the user's scale factor]
 RESIZE_CASES = {
     **{f"setr_{i}": (shape, size, False)
        for i, (shape, size) in enumerate(SETR_UPSAMPLES)},
@@ -445,10 +446,21 @@ RESIZE_CASES = {
     "down_align_corners": ((1, 2, 17, 9), (8, 4), True),
     "one_pixel": ((2, 5, 1, 1), (65, 65), False),
     # DeepLabV3's train step at 16 x 512²: the decode and aux heads' 8x
-    # logits and the ASPP image pool (wide tables, taken one tap at a time)
+    # logits and the ASPP image pool (wide tables); PSPNet's PPM from 6²
     "deeplab_decode": ((16, 2, 64, 64), (512, 512), False),
     "deeplab_aux": ((16, 2, 64, 64), (512, 512), False),
     "deeplab_pool": ((16, 512, 1, 1), (64, 64), False),
+    "pool_6_to_80": ((16, 512, 6, 6), (80, 80), False),
+    # UPerNet's 8x fpn output (16 taps an axis); MultiLevelNeck's 0.5
+    # level, also on the odd grid of 400² (25 -> 12, read at step 2)
+    "fpn_8x": ((16, 512, 20, 20), (160, 160), False),
+    "mln_half": ((16, 768, 40, 40), (20, 20), False, 0.5),
+    "mln_half_odd": ((16, 768, 25, 25), (12, 12), False, 0.5),
+    "align_corners_2x": ((16, 256, 40, 40), (80, 80), True),
+    # an odd plane whose bands do not divide its rows (the last band is
+    # shorter, bf16 rows start mid-word); more tiles than resident CTAs
+    "tile_edge": ((4, 8, 61, 47), (183, 141), False),
+    "many_planes": ((64, 256, 10, 10), (20, 20), False),
 }
 
 
@@ -461,19 +473,21 @@ def test_resize_backward_kernel_matches_plain(cuda, name, dtype,
     kernel's own float32 result rounded once."""
     counts = dict.fromkeys(resize_backward.launches, 0)
     monkeypatch.setattr(resize_backward, "launches", dict(counts))
-    (n, c, h, w), size, ac = RESIZE_CASES[name]
+    (n, c, h, w), size, ac, *scale = RESIZE_CASES[name]
+    scales = (scale[0], scale[0]) if scale else None
     g = torch.Generator(device="cpu").manual_seed(case_seed(name))
     gy = torch.randn(n, c, *size, generator=g).to(cuda, dtype)
-    got = resize_backward.resize_backward(gy, (h, w), ac)
+    got = resize_backward.resize_backward(gy, (h, w), ac, scales)
     key = ("resize_backward_bf16" if dtype == torch.bfloat16
            else "resize_backward")
     assert resize_backward.launches == dict(counts, **{key: 1})
     assert got.dtype == dtype and got.shape == (n, c, h, w)
     assert torch.equal(got, resize_backward.resize_backward_plain(
-        gy, (h, w), ac))
-    assert torch.equal(got, resize_backward.resize_backward(gy, (h, w), ac))
+        gy, (h, w), ac, scales))
+    assert torch.equal(got, resize_backward.resize_backward(gy, (h, w), ac,
+                                                            scales))
     if dtype == torch.bfloat16:
-        f32 = resize_backward.resize_backward(gy.float(), (h, w), ac)
+        f32 = resize_backward.resize_backward(gy.float(), (h, w), ac, scales)
         assert torch.equal(got, f32.to(torch.bfloat16))
 
 

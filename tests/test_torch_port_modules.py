@@ -150,9 +150,9 @@ def test_pooling_and_resize(op):
     np.testing.assert_allclose(to_nhwc(out), np.asarray(ref), **TOL)
 
 
-# (N, C, H, W), output size, align_corners: up 2x and 4x (SETR's steps),
-# a ragged up, down, align_corners up and down, and a 1-pixel input (the
-# ASPP image pool's resize)
+# (N, C, H, W), output size, align_corners[, the user's scale factor]: up
+# 2x and 4x (SETR's steps), a ragged up, down, align_corners up and down,
+# and a 1-pixel input (the ASPP image pool's resize)
 RESIZES = {
     "up_2x": ((2, 3, 6, 5), (12, 10), False),
     "up_4x": ((1, 2, 5, 4), (20, 16), False),
@@ -162,32 +162,44 @@ RESIZES = {
     "down_align_corners": ((1, 2, 17, 9), (8, 4), True),
     "one_pixel": ((2, 3, 1, 1), (9, 7), False),
     # wide tables (more than 8 taps an axis), as DeepLabV3's image pool (a
-    # 1 x 1 input) and its 8x logits take them
+    # 1 x 1 input), PSPNet's PPM (6 x 6 to the 80² map) and the 8x logits
+    # (16 taps an axis) take them
     "pool_1_to_16": ((2, 3, 1, 1), (16, 16), False),
+    "pool_6_to_80": ((1, 2, 6, 6), (80, 80), False),
     "up_8x": ((1, 2, 4, 5), (32, 40), False),
+    # MultiLevelNeck's 0.5 level on an odd grid, read at the user's step 2
+    # (25 -> 12); a plane 4x taller in one axis, 2.5x wider in the other
+    "down_half_odd": ((2, 3, 25, 25), (12, 12), False, 0.5),
+    "non_square": ((1, 2, 3, 16), (12, 40), False),
 }
 # against jax.vjp of the JAX resize: one case of each kind (up, down,
-# align_corners, a 1-pixel input, wide tables), each a jit compile
-JAX_RESIZES = ("up_2x", "down", "up_align_corners", "one_pixel",
-               "pool_1_to_16", "up_8x")
+# align_corners, a 1-pixel input, wide tables, the user's scale; the scale
+# in float32 only), all in one program
+JAX_RESIZES = [(name, dtype) for name in ("up_2x", "down", "up_align_corners",
+                                          "one_pixel", "pool_1_to_16",
+                                          "up_8x")
+               for dtype in ("float32", "bfloat16")] + [("down_half_odd",
+                                                         "float32")]
 # resize_backward_plain against F.interpolate's own CPU backward: the same
 # float32 weights and products, summed in another order
 RESIZE_ULPS = 8
 
 
-def resize_grad(x, gy, size, align_corners, fn=resize):
+def resize_grad(x, gy, size, align_corners, fn=resize, scale=None):
     leaf = x.detach().clone().requires_grad_(True)
     with torch.enable_grad():
-        out = fn(leaf, size, align_corners=align_corners)
+        out = (fn(leaf, size, align_corners=align_corners) if scale is None
+               else fn(leaf, scale_factor=scale,
+                       align_corners=align_corners))
         return out, torch.autograd.grad(out, leaf, gy.to(x.dtype))[0]
 
 
 def resize_inputs(name, seed=11):
-    (n, c, h, w), size, align_corners = RESIZES[name]
+    (n, c, h, w), size, align_corners, *scale = RESIZES[name]
     rng = np.random.RandomState(seed)
     return (torch.from_numpy(rng.randn(n, c, h, w).astype(np.float32)),
             torch.from_numpy(rng.randn(n, c, *size).astype(np.float32)),
-            size, align_corners)
+            size, align_corners, scale[0] if scale else None)
 
 
 @pytest.mark.parametrize("name", sorted(RESIZES))
@@ -195,59 +207,70 @@ def test_bf16_resize_gradient_is_the_float32_gradient_rounded_once(name):
     """Forward and backward in bf16 are the float32 ones rounded once, bit
     for bit (as the JAX resize computes them), and a second call gives the
     same bits; the backward is the port's own."""
-    x, gy, size, ac = resize_inputs(name)
+    x, gy, size, ac, scale = resize_inputs(name)
     xb, gb = x.bfloat16(), gy.bfloat16()
-    out, grad = resize_grad(xb, gb, size, ac)
-    out32, grad32 = resize_grad(xb.float(), gb.float(), size, ac)
+    out, grad = resize_grad(xb, gb, size, ac, scale=scale)
+    out32, grad32 = resize_grad(xb.float(), gb.float(), size, ac, scale=scale)
     assert type(out.grad_fn).__name__ == "BilinearResizeBackward"
     assert grad.dtype == torch.bfloat16
     assert torch.equal(out, out32.bfloat16())
     assert torch.equal(grad, grad32.bfloat16())
-    assert torch.equal(grad, resize_grad(xb, gb, size, ac)[1])
+    assert torch.equal(grad, resize_grad(xb, gb, size, ac, scale=scale)[1])
 
 
 @pytest.mark.parametrize("name", sorted(RESIZES))
 def test_resize_backward_plain_is_the_interpolate_backward(name):
     """Within a few float32 ulps of max |g| of ``F.interpolate``'s CPU
     backward, on the CPU through the wrapper, which runs the plain version
-    and launches nothing."""
-    x, gy, size, ac = resize_inputs(name)
+    (the W pass, then the H pass) and launches nothing."""
+    x, gy, size, ac, scale = resize_inputs(name)
     _, ref = resize_grad(
-        x, gy, size, ac,
-        fn=lambda t, s, align_corners: F.interpolate(
-            t, size=s, mode="bilinear", align_corners=align_corners))
+        x, gy, size, ac, scale=scale,
+        fn=lambda t, s=None, align_corners=False, scale_factor=None:
+        F.interpolate(t, size=s, scale_factor=scale_factor, mode="bilinear",
+                      align_corners=align_corners))
+    scales = (scale, scale) if scale else None
     launched = dict(resize_backward.launches)
-    got = resize_backward.resize_backward(gy, x.shape[2:], ac)
+    got = resize_backward.resize_backward(gy, x.shape[2:], ac, scales)
     assert resize_backward.launches == launched
     assert torch.equal(got, resize_backward.resize_backward_plain(
-        gy, x.shape[2:], ac))
+        gy, x.shape[2:], ac, scales))
     tol = RESIZE_ULPS * torch.finfo(torch.float32).eps * float(
         ref.abs().max())
     assert float((got - ref).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", JAX_RESIZES)
-def test_resize_gradient_matches_jax_vjp(name, dtype):
+@pytest.fixture(scope="module")
+def jax_resize_grads():
+    """``jax.vjp`` of the JAX resize (NHWC) at every JAX_RESIZES case, in
+    float32, as NCHW torch tensors: one program, compiled quickly."""
+    def grad(name, dtype):
+        x, gy, size, ac, scale = resize_inputs(name, seed=12)
+        jdtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
+        jx, jg = (jnp.asarray(to_nhwc(t), jdtype) for t in (x, gy))
+        _, vjp = jax.vjp(lambda u: jresize(
+            u, None if scale else size, scale_factor=scale,
+            align_corners=ac, warning=False), jx)
+        return vjp(jg)[0].astype(jnp.float32)
+
+    fn = jax.jit(lambda: [grad(name, dtype) for name, dtype in JAX_RESIZES])
+    return {case: to_nchw(np.asarray(ref)) for case, ref in
+            zip(JAX_RESIZES, compile_quickly(fn)())}
+
+
+@pytest.mark.parametrize("name,dtype", JAX_RESIZES,
+                         ids=[f"{n}-{d}" for n, d in JAX_RESIZES])
+def test_resize_gradient_matches_jax_vjp(name, dtype, jax_resize_grads):
     """The port's resize gradient against ``jax.vjp`` of the JAX resize
     (NHWC): in float32 within a few float32 ulps of max |g| (the JAX
     weights are rounded from float64, the port's computed in float32 as
     ``F.interpolate`` computes them); in bf16 each is the float32 gradient
     rounded once, so they differ by at most one bf16 step where the two
     float32 gradients straddle a rounding boundary."""
-    x, gy, size, ac = resize_inputs(name, seed=12)
-    jdtype = jnp.float32 if dtype == "float32" else jnp.bfloat16
-    jx, jg = (jnp.asarray(to_nhwc(t), jdtype) for t in (x, gy))
-
-    @jax.jit  # one compile instead of one per eager op
-    def jax_grad(t, cotangent):
-        _, vjp = jax.vjp(lambda u: jresize(u, size, align_corners=ac,
-                                           warning=False), t)
-        return vjp(cotangent)[0]
-
-    ref = to_nchw(np.asarray(jax_grad(jx, jg).astype(jnp.float32)))
+    x, gy, size, ac, scale = resize_inputs(name, seed=12)
+    ref = jax_resize_grads[name, dtype]
     tdtype = getattr(torch, dtype)
-    _, got = resize_grad(x.to(tdtype), gy.to(tdtype), size, ac)
+    _, got = resize_grad(x.to(tdtype), gy.to(tdtype), size, ac, scale=scale)
     assert got.dtype == tdtype
     top = float(ref.abs().max())
     ulps = RESIZE_ULPS * torch.finfo(torch.float32).eps * top
