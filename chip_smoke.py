@@ -785,7 +785,7 @@ def kernel_times(fn, flush=None, runs=1):
     return times, wall, counts
 
 
-def device_ms(fn, kernel, flush, runs=20, attempts=5):
+def device_ms(fn, kernel, flush, runs=20, attempts=5, profiles=1):
     """The device time of one call of ``fn``: of the kernel whose name
     contains ``kernel`` (launched once a call) or, with ``kernel=None``, of
     every kernel but the flush's own, with ``flush()`` before each call.
@@ -793,26 +793,32 @@ def device_ms(fn, kernel, flush, runs=20, attempts=5):
     ``kernel`` than calls (the profiler now and then drops a trace or part
     of one), is taken again, up to ``attempts`` times, and said so.  Each
     kernel's time is the mean of the launches it recorded times its
-    launches a call (``kernel``: one; else its recorded launches over the
-    calls, rounded, at least one), so launches the profiler dropped count
-    at their mean."""
+    launches in one call (``kernel``: one; else as a profile of one call
+    counts them), so launches the profiler dropped count at their mean.
+    With ``profiles`` > 1, the median of that many profiles' times: now and
+    then one profile of a kernel reads about half of the time of the
+    others and of its CUDA events."""
     skip = flush_kernels(flush) if flush is not None else ()
-    for attempt in range(attempts):
-        times, _, counts = kernel_times(fn, flush, runs)
-        launched = sum(n for name, n in counts.items()
-                       if kernel and kernel in name)
-        if times and (not kernel or launched >= runs):
-            break
-        print(f"profile {attempt + 1} of {kernel}: {len(times)} kernels, "
-              f"{launched} of {runs} launches", flush=True)
-    hits = [ms * runs / counts[name] * (1 if kernel else
-                                        max(1, round(counts[name] / runs)))
-            for name, ms in times.items()
-            if (kernel in name if kernel else name not in skip)]
-    if not hits:
-        raise AssertionError(f"the profiler saw no {kernel} kernel: "
-                             f"{sorted(times)}")
-    return sum(hits)
+    per_call = {} if kernel else one_call_kernels(fn)
+    totals = []
+    for _ in range(profiles):
+        for attempt in range(attempts):
+            times, _, counts = kernel_times(fn, flush, runs)
+            launched = sum(n for name, n in counts.items()
+                           if kernel and kernel in name)
+            if times and (not kernel or launched >= runs):
+                break
+            print(f"profile {attempt + 1} of {kernel}: {len(times)} kernels, "
+                  f"{launched} of {runs} launches", flush=True)
+        hits = [ms * runs / counts[name]
+                * (1 if kernel else per_call.get(name, counts[name] / runs))
+                for name, ms in times.items()
+                if (kernel in name if kernel else name not in skip)]
+        if not hits:
+            raise AssertionError(f"the profiler saw no {kernel} kernel: "
+                                 f"{sorted(times)}")
+        totals.append(sum(hits))
+    return statistics.median(totals)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1716,6 +1722,9 @@ def resize_backward_phase(device, l2_flush):
                 (gy.numel() + got.numel()) * gy.element_size(), ops,
                 PEAK_FLOPS[torch.float32])
             flush = l2_flush.zero_
+            # the library's atomic backward takes up to 0.26 s a call at
+            # the image pools: 5 calls a measurement where one takes 5 ms
+            lib_runs = 20 if cuda_ms(library, flush, 1, 1) < 5.0 else 5
             row = dict(
                 shape=[n, c, h, w], size=list(size), scales=scales,
                 align_corners=ac, dtype=str(dtype).replace("torch.", ""),
@@ -1725,11 +1734,12 @@ def resize_backward_phase(device, l2_flush):
                 max_abs_grad=float(ref.abs().max()),
                 ms=cuda_ms(kernel, flush),
                 device_ms=device_ms(kernel, "resize_backward_kernel",
-                                    flush),
+                                    flush, profiles=3),
                 plain_ms=cuda_ms(plain, flush, warmup=1, runs=5),
-                library_ms=cuda_ms(library, flush),
-                library_device_ms=device_ms(library, None, flush),
-                bound_ms=bound, bound_by=bound_by)
+                library_ms=cuda_ms(library, flush, 1, lib_runs),
+                library_device_ms=device_ms(library, None, flush,
+                                            runs=lib_runs),
+                library_runs=lib_runs, bound_ms=bound, bound_by=bound_by)
             row["vs_library"] = row["device_ms"] / row["library_device_ms"]
             row["bound_share"] = bound / row["device_ms"]
             print("resize backward:", json.dumps(row), flush=True)

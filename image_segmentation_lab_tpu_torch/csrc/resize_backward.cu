@@ -28,15 +28,19 @@
 // planes where planes are small, and the contiguous band of g rows that
 // those input rows tap; the host plans them (ops/resize_backward.py::_plan)
 // so that the tables, two stages of g, the partials and the dx tile fit in
-// 72 KB (three CTAs an SM).  The CTAs are persistent and loop over the
-// tiles.  Each stages the band of its next tile with cp.async (4-byte
-// copies, one commit group a tile) while it reduces the current one, and
-// waits for it only at the next tile.  A staged g row lies at an odd pitch
-// in 4-byte words (a bf16 row shifted by the parity of its first element),
-// so that lanes on consecutive rows read one column from 32 banks; TMA
-// copies 16-byte aligned rows, whose pitch would put 4 of those lanes on
-// one bank.  The dx tile is built in shared memory and copied out,
-// contiguous, with 16-byte stores.
+// 72 KB (three CTAs an SM).  Where even one input row's g rows do not fit
+// two stages (wide rows at a large upsample, or a 1-pixel input read by a
+// large plane), the band is staged in parts of a few g rows, whose W passes
+// fill the tile's partials one after another.  The CTAs are persistent and
+// loop over the tiles.  Each stages its next part (most often the next
+// tile's whole band) with cp.async (4-byte copies, one commit group a part)
+// while it reduces the current one, and waits for it only at the next
+// part.  A staged g row lies at an odd pitch in 4-byte words (a bf16 row
+// shifted by the parity of its first element), so that lanes on
+// consecutive rows read one column from 32 banks; TMA copies 16-byte
+// aligned rows, whose pitch would put 4 of those lanes on one bank.  The
+// dx tile is built in shared memory and copied out, contiguous, with
+// 16-byte stores.
 //
 // Each pass sums an axis one of two ways (the host picks, per axis):
 // - by input index (kSums), where inputs have more than two taps (an
@@ -56,7 +60,7 @@
 // What bounds it on the card: bytes.  It reads g once (a band's edge rows
 // twice, from the L2) and writes dx once; an upsample by s costs about
 // 2 + 2/s multiply-adds an element of g, far under the card's operations a
-// byte.  On an H100 the wide upsamples stay 2-7x over that bound
+// byte.  On an H100 the wide upsamples stay 2-8x over that bound
 // (PERF.md): the staging alone runs at it, and the two passes, which each
 // CTA runs after its staging, issue slowly.  Indices are 32-bit inside a
 // tile and 64-bit across the tensor.
@@ -76,15 +80,23 @@ constexpr int kStages = 2;
 // that sum their taps (kSums) together
 constexpr int kCols = 4, kRows = 4;
 
-// n / d for 0 <= n < 2^31 by a multiply and a shift (PyTorch's IntDivider;
-// the host computes m and s: ops/resize_backward.py::_fastdiv)
-struct FastDiv {
-  uint32_t m, s;
+// A thread's indices u, u + du, u + 2 du, ... (or steps of du + 1, where
+// `next` is given a carry) as (q, r) = (u / n, u % n), stepped without a
+// division a step
+struct Steps {
+  int n, q, r, dq, dr;
+  __device__ __forceinline__ Steps(int n, int u, int du)
+      : n(n), q(u / n), r(u % n), dq(du / n), dr(du % n) {}
+  // the step; returns the carry into q (0 or 1) beyond dq
+  __device__ __forceinline__ int next(int carry = 0) {
+    q += dq;
+    r += dr + carry;
+    if (r < n) return 0;
+    r -= n;
+    ++q;
+    return 1;
+  }
 };
-
-__device__ __forceinline__ int divide(const FastDiv& f, int n) {
-  return (int)((__umulhi((uint32_t)n, f.m) + (uint32_t)n) >> f.s);
-}
 
 // One axis's tables and how its pass sums: by input index (kSums) or by a
 // scan over the output indices (kScan); ops/resize_backward.py::_axis.
@@ -103,23 +115,18 @@ struct Axis {
   // kScan: per chunk of `chunk` input indices, the first output index
   // that reads one of them and one past the last
   const int2* spans;
-  int chunk;  // input indices a unit takes: kCols / kRows, or the chunk
+  int chunk;  // kScan: the input indices a unit takes
 };
 
 struct Params {
   int planes, in_h, in_w, out_h, out_w;
   Axis rows, cols;
-  // per band: first g row, g rows, and its tile's g rows (tile_planes
-  // planes) as a FastDiv's m and s; last_w_div for the last tile's planes
-  // where they are fewer
-  const int4* bands;
+  const int2* bands;  // per band: its first g row, its g rows
   int nbands, band_rows, tile_planes, ntiles;
-  FastDiv last_w_div;
-  int rows_max;  // the most g rows of a band
-  int g_pitch;   // 4-byte words a staged g row, odd
-  int h_pitch;   // floats a partial row, odd
-  FastDiv in_w_div;
-  FastDiv plane_units_div;  // H pass row units of a whole plane
+  int rows_max;    // the most g rows of a band
+  int stage_rows;  // the most g rows a stage holds
+  int g_pitch;     // 4-byte words a staged g row, odd
+  int h_pitch;     // floats a partial row, odd
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -231,7 +238,7 @@ __device__ __forceinline__ void cp_async_wait() {
 struct Tile {
   int plane0, planes, i_lo, in_rows, o_lo, o_rows;
   int64_t g_row0;  // its first g row, counted over all planes
-  FastDiv w_div;   // its g rows, planes * o_rows
+  __device__ int rows() const { return planes * o_rows; }
 };
 
 __device__ __forceinline__ Tile tile_at(const Params& p, int t) {
@@ -241,14 +248,23 @@ __device__ __forceinline__ Tile tile_at(const Params& p, int t) {
   tile.planes = min(p.tile_planes, p.planes - tile.plane0);
   tile.i_lo = b * p.band_rows;
   tile.in_rows = min(p.band_rows, p.in_h - tile.i_lo);
-  const int4 band = __ldg(p.bands + b);
+  const int2 band = __ldg(p.bands + b);
   tile.o_lo = band.x;
   tile.o_rows = band.y;
   tile.g_row0 = (int64_t)tile.plane0 * p.out_h + band.x;
-  tile.w_div = tile.planes == p.tile_planes
-                   ? FastDiv{(uint32_t)band.z, (uint32_t)band.w}
-                   : p.last_w_div;
   return tile;
+}
+
+// A CTA's work, in order: each of its tiles t (blockIdx.x, then every
+// gridDim.x-th), each staged in parts of at most stage_rows g rows
+struct Part {
+  int t, r0;  // the tile and the first of its g rows that the part holds
+};
+
+__device__ __forceinline__ Part next_part(const Params& p, const Tile& tile,
+                                          Part c) {
+  return c.r0 + p.stage_rows < tile.rows() ? Part{c.t, c.r0 + p.stage_rows}
+                                           : Part{c.t + (int)gridDim.x, 0};
 }
 
 // the shift, in elements, of a staged g row: a bf16 row is copied from the
@@ -258,20 +274,21 @@ __device__ __forceinline__ int row_shift(const Params& p, int64_t g_row) {
   return sizeof(T) == 4 ? 0 : (int)((g_row * p.out_w) & 1);
 }
 
-// Issue the cp.async copies of a tile's g band into a stage: warps over
-// rows, lanes over a row's 4-byte words.  More planes than one are whole
-// planes, so the band is g rows g_row0 ... g_row0 + planes * o_rows - 1.
-// A bf16 row's first and last word may hold an element of a neighbouring
-// row or lie past the tensor's last element; such a word is 4-byte
-// aligned and holds an element of g, so it lies in g's allocation.
+// Issue the cp.async copies of a part of a tile's g band into a stage:
+// warps over rows, lanes over a row's 4-byte words.  More planes than one
+// are whole planes, so the band is g rows g_row0 ... g_row0 + planes *
+// o_rows - 1; the part is its rows r0 ... r0 + rows - 1.  A bf16 row's
+// first and last word may hold an element of a neighbouring row or lie
+// past the tensor's last element; such a word is 4-byte aligned and holds
+// an element of g, so it lies in g's allocation.
 template <typename T>
-__device__ void stage_band(const T* __restrict__ g, uint32_t stage,
-                           const Params& p, const Tile& tile) {
-  const int rows = tile.planes * tile.o_rows;
+__device__ __forceinline__ void stage_band(const T* __restrict__ g, uint32_t stage,
+                           const Params& p, const Tile& tile, int r0,
+                           int rows) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += kWarps) {
-    const int64_t e0 = (tile.g_row0 + r) * p.out_w;
-    const int shift = row_shift<T>(p, tile.g_row0 + r);
+    const int64_t e0 = (tile.g_row0 + r0 + r) * p.out_w;
+    const int shift = row_shift<T>(p, tile.g_row0 + r0 + r);
     const char* src = reinterpret_cast<const char*>(g + (e0 - shift));
     const int words = (int)(((p.out_w + shift) * sizeof(T) + 3) / 4);
     const uint32_t dst = stage + 4u * (uint32_t)(r * p.g_pitch);
@@ -279,24 +296,28 @@ __device__ void stage_band(const T* __restrict__ g, uint32_t stage,
   }
 }
 
-// The W pass: h[r, j] = sum over the column taps p of j (ascending) of
-// w * g[r, p].  A unit is one staged row and cols.chunk columns, the rows
-// on consecutive lanes; cols is the column table in shared memory.
+// The W pass of a part of a tile's g rows (r0 ... r0 + rows - 1, staged
+// from row 0 of the stage): h[r, j] = sum over the column taps p of j
+// (ascending) of w * g[r, p].  A unit is one staged row and kCols columns
+// (a scan: cols.chunk), the rows on consecutive lanes; cols is the column
+// table in shared memory.
 template <typename T>
-__device__ void w_pass(const float* __restrict__ stage, float* __restrict__ h,
+__device__ __forceinline__ void w_pass(const float* __restrict__ stage, float* __restrict__ h,
                        const int* __restrict__ cols, const Params& p,
-                       const Tile& tile) {
-  const int rows = tile.planes * tile.o_rows;
-  const int units = rows * ((p.in_w + p.cols.chunk - 1) / p.cols.chunk);
-  for (int u = threadIdx.x; u < units; u += kThreads) {
-    const int c = divide(tile.w_div, u), r = u - c * rows;
+                       const Tile& tile, int r0, int rows) {
+  const int chunk = p.cols.method == kScan ? p.cols.chunk : kCols;
+  const int units = rows * ((p.in_w + chunk - 1) / chunk);
+  // a band that no output reads has no rows
+  Steps step(max(rows, 1), threadIdx.x, kThreads);
+  for (int u = threadIdx.x; u < units; u += kThreads, step.next()) {
+    const int c = step.q, r = step.r;
     const T* row = reinterpret_cast<const T*>(stage + r * p.g_pitch) +
-                   row_shift<T>(p, tile.g_row0 + r);
-    float* out = h + r * p.h_pitch;
-    const int j0 = c * p.cols.chunk;
+                   row_shift<T>(p, tile.g_row0 + r0 + r);
+    float* out = h + (r0 + r) * p.h_pitch;
+    const int j0 = c * chunk;
     if (p.cols.method == kScan) {
       scan(row, 0, 1, reinterpret_cast<const int4*>(cols),
-           __ldg(p.cols.spans + c), j0, min(j0 + p.cols.chunk, p.in_w),
+           __ldg(p.cols.spans + c), j0, min(j0 + chunk, p.in_w),
            [out](int j, float sum) { out[j] = sum; });
       continue;
     }
@@ -320,22 +341,23 @@ __device__ void w_pass(const float* __restrict__ stage, float* __restrict__ h,
 
 // The H pass: dx[i, j] = sum over the row taps o of i (ascending) of
 // w * h[o, j], in g's dtype into the tile's dx buffer at offset `shift`.
-// A unit is one column and rows.chunk input rows of the tile, the columns
-// on consecutive lanes; rows_table is the row table in shared memory.
+// A unit is one column and kRows input rows of the tile (a scan:
+// rows.chunk), the columns on consecutive lanes; rows_table is the row
+// table in shared memory.
 template <typename T>
-__device__ void h_pass(const float* __restrict__ h, T* __restrict__ out,
+__device__ __forceinline__ void h_pass(const float* __restrict__ h, T* __restrict__ out,
                        int shift, const int* __restrict__ rows_table,
                        const Params& p, const Tile& tile) {
-  const int chunk = p.rows.chunk;
+  const int chunk = p.rows.method == kScan ? p.rows.chunk : kRows;
   const int units = (tile.in_rows + chunk - 1) / chunk;
   const int n_units = tile.planes * units * p.in_w;
-  for (int v = threadIdx.x; v < n_units; v += kThreads) {
-    const int t = divide(p.in_w_div, v), j = v - t * p.in_w;
-    int q = 0, kc = t;
-    if (p.tile_planes > 1) {  // whole planes: in_rows == in_h
-      q = divide(p.plane_units_div, t);
-      kc = t - q * units;
-    }
+  // v as (t, j) = (v / in_w, v % in_w), and t as (q, kc) = (plane,
+  // unit): t steps by step.dq and step's carry
+  Steps step(p.in_w, threadIdx.x, kThreads);
+  Steps plane(units, step.q, step.dq);
+  for (int v = threadIdx.x; v < n_units;
+       v += kThreads, plane.next(step.next())) {
+    const int j = step.r, q = plane.q, kc = plane.r;
     // g row o of plane q is h row q * o_rows + o - o_lo; input row i is
     // row q * in_rows + i - i_lo of the dx tile
     const float* col = h + q * tile.o_rows * p.h_pitch + j;
@@ -374,7 +396,7 @@ __device__ void h_pass(const float* __restrict__ h, T* __restrict__ out,
 // copy the tile's dx (contiguous in dx from element e0) out of shared
 // memory, 16 bytes a store where a whole aligned 16 bytes are the tile's
 template <typename T>
-__device__ void copy_out(const T* tile_dx, int shift, T* __restrict__ dx,
+__device__ __forceinline__ void copy_out(const T* tile_dx, int shift, T* __restrict__ dx,
                          int64_t e0, int n) {
   constexpr int kVec = 16 / sizeof(T);
   const int chunks = (shift + n + kVec - 1) / kVec;
@@ -398,15 +420,17 @@ struct Layout {
   int tables, stage, h;
   __host__ __device__ explicit Layout(const Params& p)
       : tables(p.rows.table_words + p.cols.table_words),
-        stage(p.tile_planes * p.rows_max * p.g_pitch),
+        stage(p.stage_rows * p.g_pitch),
         h(p.tile_planes * p.rows_max * p.h_pitch) {}
   __host__ __device__ int dx_offset() const {
     return (tables + kStages * stage + h + 3) & ~3;
   }
 };
 
+// (kThreads, 1): ptxas otherwise held the float32 instance to 48 registers
+// and spilled to the stack
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 resize_backward_kernel(const T* __restrict__ g, T* __restrict__ dx,
                        const Params p) {
   extern __shared__ uint4 smem[];
@@ -423,35 +447,40 @@ resize_backward_kernel(const T* __restrict__ g, T* __restrict__ dx,
       reinterpret_cast<T*>(reinterpret_cast<float*>(smem) + layout.dx_offset());
   const uint32_t stage0 = (uint32_t)__cvta_generic_to_shared(stages);
 
-  for (int s = 0; s < kStages - 1; ++s) {
-    const int t = blockIdx.x + s * gridDim.x;
-    if (t < p.ntiles)
-      stage_band(g, stage0 + 4u * (uint32_t)(s * layout.stage), p,
-                 tile_at(p, t));
+  // two stages: the next part's copies are in flight while the current
+  // one is reduced
+  static_assert(kStages == 2, "one part ahead");
+  Part cur{(int)blockIdx.x, 0};
+  if (cur.t >= p.ntiles) return;
+  Tile tile = tile_at(p, cur.t);
+  stage_band(g, stage0, p, tile, 0, min(p.stage_rows, tile.rows()));
+  cp_async_commit();
+  for (int k = 0; cur.t < p.ntiles; ++k) {
+    const Part ahead = next_part(p, tile, cur);
+    const Tile ahead_tile =
+        ahead.t == cur.t || ahead.t >= p.ntiles ? tile : tile_at(p, ahead.t);
+    if (ahead.t < p.ntiles)
+      stage_band(g, stage0 + 4u * (uint32_t)(((k + 1) % 2) * layout.stage),
+                 p, ahead_tile, ahead.r0,
+                 min(p.stage_rows, ahead_tile.rows() - ahead.r0));
     cp_async_commit();
-  }
-  int k = 0;
-  for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x, ++k) {
-    const int ahead = t + (kStages - 1) * gridDim.x;
-    if (ahead < p.ntiles)
-      stage_band(g,
-                 stage0 + 4u * (uint32_t)(((k + kStages - 1) % kStages) *
-                                          layout.stage),
-                 p, tile_at(p, ahead));
-    cp_async_commit();
-    const Tile tile = tile_at(p, t);
-    cp_async_wait<kStages - 1>();
-    __syncthreads();  // the band is in; the last tile's dx is out
-    w_pass<T>(stages + (k % kStages) * layout.stage, h, cols_table, p,
-              tile);
-    __syncthreads();
-    const int64_t e0 =
-        ((int64_t)tile.plane0 * p.in_h + tile.i_lo) * p.in_w;
-    const int shift = (int)(e0 % (16 / (int)sizeof(T)));
-    h_pass<T>(h, tile_dx, shift, rows_table, p, tile);
-    __syncthreads();
-    copy_out<T>(tile_dx, shift, dx, e0,
-                tile.planes * tile.in_rows * p.in_w);
+    cp_async_wait<1>();
+    __syncthreads();  // the part is in; the last tile's dx is out
+    const int rows = min(p.stage_rows, tile.rows() - cur.r0);
+    w_pass<T>(stages + (k % 2) * layout.stage, h, cols_table, p, tile,
+              cur.r0, rows);
+    __syncthreads();  // the partials are in; the stage may be refilled
+    if (cur.r0 + rows == tile.rows()) {  // the tile's last part
+      const int64_t e0 =
+          ((int64_t)tile.plane0 * p.in_h + tile.i_lo) * p.in_w;
+      const int shift = (int)(e0 % (16 / (int)sizeof(T)));
+      h_pass<T>(h, tile_dx, shift, rows_table, p, tile);
+      __syncthreads();
+      copy_out<T>(tile_dx, shift, dx, e0,
+                  tile.planes * tile.in_rows * p.in_w);
+    }
+    cur = ahead;
+    tile = ahead_tile;
   }
   cp_async_wait<0>();
 }
@@ -512,9 +541,9 @@ Axis make_axis(int method, const void* table, int table_words, int stride,
 // (0 float32, 1 bfloat16), each of fewer than 2^31 elements.  Per axis
 // (rows, then columns; ops/resize_backward.py::_axis): the method
 // (0 sums, 1 scan), its table and the table's ints, the sums table's
-// stride, the scan's spans and the input indices a unit takes; bands an
-// (nbands, 4) int32 array: each band's first g row, g rows and W divisor
-// (m, s) for tile_planes planes; the rest is the host's plan
+// stride, and the scan's spans and the input indices a unit takes (null
+// and 0 for the sums); bands an (nbands, 2) int32 array: each band's first
+// g row and g rows; the rest is the host's plan
 // (ops/resize_backward.py::_plan).  Returns the cudaError_t of the launch
 // (0 on success).
 extern "C" {
@@ -525,17 +554,18 @@ int resize_backward_bilinear(
     int row_words, int row_stride, const void* row_spans, int row_chunk,
     int col_method, const void* col_table, int col_words, int col_stride,
     const void* col_spans, int col_chunk, const void* bands, int nbands,
-    uint32_t last_w_m, uint32_t last_w_s, int band_rows, int tile_planes,
-    int rows_max, int g_pitch, int h_pitch, uint32_t in_w_m, uint32_t in_w_s,
-    uint32_t plane_units_m, uint32_t plane_units_s, void* stream) {
+    int band_rows, int tile_planes, int rows_max, int stage_rows,
+    int g_pitch, int h_pitch, void* stream) {
   if (planes * in_h * in_w == 0) return 0;
   if (planes * in_h * in_w > 0x7fffffff ||
       planes * out_h * out_w > 0x7fffffff ||
       (reinterpret_cast<uintptr_t>(g) & 3) ||
       (reinterpret_cast<uintptr_t>(dx) & 15) || tile_planes < 1 ||
-      band_rows < 1 || row_chunk < 1 || col_chunk < 1 ||
-      (row_method == kSums && (row_chunk != kRows || row_stride % 4)) ||
-      (col_method == kSums && (col_chunk != kCols || col_stride % 4)) ||
+      band_rows < 1 || stage_rows < 1 ||
+      (row_method == kSums && row_stride % 4) ||
+      (col_method == kSums && col_stride % 4) ||
+      (row_method == kScan && row_chunk < 1) ||
+      (col_method == kScan && col_chunk < 1) ||
       (tile_planes > 1 && band_rows != in_h) ||
       (row_method == kScan && band_rows < in_h && band_rows % row_chunk))
     return (int)cudaErrorInvalidValue;
@@ -549,17 +579,15 @@ int resize_backward_bilinear(
                      row_chunk);
   p.cols = make_axis(col_method, col_table, col_words, col_stride, col_spans,
                      col_chunk);
-  p.bands = static_cast<const int4*>(bands);
+  p.bands = static_cast<const int2*>(bands);
   p.nbands = nbands;
   p.band_rows = band_rows;
   p.tile_planes = tile_planes;
   p.ntiles = (int)((planes + tile_planes - 1) / tile_planes) * nbands;
-  p.last_w_div = FastDiv{last_w_m, last_w_s};
   p.rows_max = rows_max;
+  p.stage_rows = stage_rows;
   p.g_pitch = g_pitch;
   p.h_pitch = h_pitch;
-  p.in_w_div = FastDiv{in_w_m, in_w_s};
-  p.plane_units_div = FastDiv{plane_units_m, plane_units_s};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case 0:

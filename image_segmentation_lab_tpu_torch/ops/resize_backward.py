@@ -52,16 +52,14 @@ def build_library() -> ctypes.CDLL:
     if _lib is None:
         lib = load_library("resize_backward.cu")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        u32 = ctypes.c_uint32
         # g, dx, dtype, planes, in_h, in_w, out_h, out_w; per axis (rows,
         # columns) the method, table, its ints, stride, spans and chunk;
-        # the bands and their count, the last tile's W divisor (m, s),
-        # band_rows, tile_planes, rows_max, g_pitch, h_pitch, the divisors
-        # (m, s) of in_w and of a plane's H pass units, stream
+        # the bands and their count, band_rows, tile_planes, rows_max,
+        # stage_rows, g_pitch, h_pitch, stream
         lib.resize_backward_bilinear.argtypes = (
             [ptr, ptr, i32, ctypes.c_int64] + [i32] * 4
             + [i32, ptr, i32, i32, ptr, i32] * 2
-            + [ptr, i32, u32, u32] + [i32] * 5 + [u32] * 4 + [ptr])
+            + [ptr, i32] + [i32] * 6 + [ptr])
         lib.resize_backward_bilinear.restype = i32
         lib.resize_backward_error_string.argtypes = [i32]
         lib.resize_backward_error_string.restype = ctypes.c_char_p
@@ -194,11 +192,12 @@ def _scan_chunk(in_size, out_size, outputs):
 @functools.lru_cache(maxsize=None)
 def _axis(in_size, out_size, align_corners, scale, chunk):
     """One axis as the kernel reads it: ``(method, table, stride, spans,
-    chunk)``, numpy; ``chunk`` the input indices a unit takes (``KCOLS``
-    or ``KROWS`` where the axis sums by input index)."""
+    chunk)``, numpy; ``chunk`` the input indices a scan's unit takes (0
+    where the axis sums by input index, whose units take ``KCOLS`` or
+    ``KROWS``)."""
     if not _scans(in_size, out_size, align_corners, scale):
         table = _sums_table(in_size, out_size, align_corners, scale)
-        return SUMS, table, table.shape[1], None, chunk
+        return SUMS, table, table.shape[1], None, 0
     taps, spans = _scan_tables(in_size, out_size, align_corners, chunk,
                                scale)
     return SCAN, taps, 4, spans, chunk
@@ -211,23 +210,15 @@ SMEM_PLAN_BYTES, SMEM_MAX_BYTES = 72 * 1024, 227 * 1024
 STAGES = 2
 
 
-def _smem_bytes(tile_planes, band_rows, rows_max, g_pitch, h_pitch, in_w,
-                elem, table_words):
+def _smem_bytes(tile_planes, band_rows, rows_max, stage_rows, g_pitch,
+                h_pitch, in_w, elem, table_words):
     """The kernel's shared memory (``csrc/resize_backward.cu``
-    ``Layout``): both axes' tables, two stages of g, the partials, the dx
-    tile."""
-    words = table_words + tile_planes * rows_max * (STAGES * g_pitch
-                                                    + h_pitch)
+    ``Layout``): both axes' tables, two stages of ``stage_rows`` g rows,
+    the partials, the dx tile."""
+    words = (table_words + STAGES * stage_rows * g_pitch
+             + tile_planes * rows_max * h_pitch)
     return 4 * (-(-words // 4) * 4) + tile_planes * band_rows * in_w * elem \
         + 16
-
-
-def _fastdiv(d):
-    """``(m, s)`` of the kernel's division by ``d`` (``FastDiv``):
-    n // d == (umulhi(n, m) + n) >> s for 0 <= n < 2**31."""
-    d = max(int(d), 1)
-    s = (d - 1).bit_length()
-    return ((1 << 32) * ((1 << s) - d)) // d + 1, s
 
 
 @functools.lru_cache(maxsize=None)
@@ -235,18 +226,19 @@ def _plan(planes, in_h, in_w, out_h, out_w, elem, align_corners,
           scale_h=None, scale_w=None):
     """The input rows and columns of an H and a W pass unit, then the
     kernel's tiles, as the arguments of ``resize_backward_bilinear`` from
-    ``bands`` on: ``bands``, ``(nbands, 4)`` int32: each band's first
-    g row, its g rows and the W pass's divisor (m bits, s) for
-    ``tile_planes`` planes; the last tile's W divisor (m, s);
-    ``band_rows``, ``tile_planes``, ``rows_max``, ``g_pitch``, ``h_pitch``,
-    the divisors of ``in_w`` and of a plane's H pass units.  A band is
-    ``band_rows`` input rows (a multiple of a row SCAN's chunk, or the
-    whole plane) and the g rows they tap: the most whose tile fits
-    ``SMEM_PLAN_BYTES``.  Where a band is a whole plane, a tile takes
-    ``tile_planes`` planes, enough for about 2048 partials while they fit.
-    A staged g row takes ``g_pitch`` 4-byte words and a partial row
-    ``h_pitch`` floats, both odd (a bf16 row starts at the word that holds
-    its first element)."""
+    ``bands`` on: ``bands``, ``(nbands, 2)`` int32: each band's first
+    g row and its g rows; ``band_rows``, ``tile_planes``, ``rows_max``,
+    ``stage_rows``, ``g_pitch``, ``h_pitch``.  A band is ``band_rows``
+    input rows (a multiple of a row SCAN's chunk, or the whole plane) and
+    the g rows they tap: the most whose tile fits ``SMEM_PLAN_BYTES``.
+    Where a band is a whole plane, a tile takes ``tile_planes`` planes,
+    enough for about 2048 partials while they fit.  A stage holds a tile's
+    whole band, or where the least band does not fit, ``stage_rows`` of
+    its g rows at a time, the most that fit.  A staged g row takes
+    ``g_pitch`` 4-byte words and a partial row ``h_pitch`` floats, both odd
+    (a bf16 row starts at the word that holds its first element).  Raises
+    ``ValueError`` where one staged g row does not fit
+    ``SMEM_MAX_BYTES`` beside the tables, the partials and the dx tile."""
     row_scan = _scans(in_h, out_h, align_corners, scale_h)
     row_chunk = (_scan_chunk(in_h, out_h, H_SCAN) if row_scan else KROWS)
     col_chunk = (_scan_chunk(in_w, out_w, W_SCAN)
@@ -265,9 +257,11 @@ def _plan(planes, in_h, in_w, out_h, out_w, elem, align_corners,
             out.append((o_lo, o_hi + 1 - o_lo) if o_hi >= 0 else (0, 0))
         return np.array(out, np.int32)
 
-    def smem(rows, tile_planes=1):
-        return _smem_bytes(tile_planes, rows, int(bands(rows)[:, 1].max()),
-                           g_pitch, h_pitch, in_w, elem, table_words)
+    def smem(rows, tile_planes=1, stage_rows=None):
+        rows_max = int(bands(rows)[:, 1].max())
+        return _smem_bytes(tile_planes, rows, rows_max,
+                           stage_rows or tile_planes * rows_max, g_pitch,
+                           h_pitch, in_w, elem, table_words)
 
     # a row scan's bands are multiples of its chunk: halve it to fit
     while True:
@@ -285,23 +279,26 @@ def _plan(planes, in_h, in_w, out_h, out_w, elem, align_corners,
     while band_rows < in_h and smem(min(band_rows + step, in_h)) \
             <= SMEM_PLAN_BYTES:
         band_rows = min(band_rows + step, in_h)
-    if smem(band_rows) > SMEM_MAX_BYTES:
-        raise ValueError(f"a row of {out_w} elements does not fit the "
-                         f"resize backward kernel's shared memory")
     table, tile_planes = bands(band_rows), 1
-    if band_rows == in_h:  # every g row of the plane: (0, out_h)
+    rows_max = int(table[:, 1].max())
+    stage_rows = rows_max
+    if smem(band_rows) > SMEM_PLAN_BYTES:  # stage the band in parts
+        most = max([1] + [s for s in range(1, rows_max)
+                          if smem(band_rows, 1, s) <= SMEM_PLAN_BYTES])
+        parts = -(-rows_max // most)  # as few as fit, of even size
+        stage_rows = -(-rows_max // parts)
+        if smem(band_rows, 1, stage_rows) > SMEM_MAX_BYTES:
+            raise ValueError(
+                f"a row of {out_w} elements does not fit the resize "
+                f"backward kernel's shared memory beside its tables")
+    elif band_rows == in_h:  # every g row of the plane: (0, out_h)
         assert table.tolist() == [[0, out_h]]
         want = min(planes, -(-2048 // (out_h * in_w)))
         tile_planes = next(t for t in range(want, 0, -1)
                            if t == 1 or smem(in_h, t) <= SMEM_PLAN_BYTES)
-    divs = np.array([_fastdiv(tile_planes * rows) for rows in table[:, 1]],
-                    np.int64).reshape(-1, 2)
-    table = np.concatenate([table, divs.astype(np.uint32).view(np.int32)],
-                           axis=1)
-    return (row_chunk, col_chunk, table,
-            *_fastdiv(planes % tile_planes * out_h), band_rows, tile_planes,
-            int(table[:, 1].max()), g_pitch, h_pitch, *_fastdiv(in_w),
-            *_fastdiv(-(-in_h // row_chunk)))
+        stage_rows = tile_planes * rows_max
+    return (row_chunk, col_chunk, table, band_rows, tile_planes, rows_max,
+            stage_rows, g_pitch, h_pitch)
 
 
 def _check(g, in_size):
@@ -396,14 +393,13 @@ def _launch_args(planes, in_h, in_w, out_h, out_w, elem, align_corners,
     axes = [_axis(i, o, align_corners, sc, chunk)
             for i, o, sc, chunk in ((in_h, out_h, scale_h, row_chunk),
                                     (in_w, out_w, scale_w, col_chunk))]
-    tensors = [torch.from_numpy(t).to(device) for t in
-               [a for method, table, stride, spans, chunk in axes
-                for a in (table, table if spans is None else spans)]
-               + [bands]]
+    tensors = [None if t is None else torch.from_numpy(t).to(device)
+               for t in [a for _, table, _, spans, _ in axes
+                         for a in (table, spans)] + [bands]]
     args = []
     for (method, table, stride, _, chunk), (table_t, spans_t) in zip(
             axes, (tensors[0:2], tensors[2:4])):
         args += [method, table_t.data_ptr(), table.size, stride,
-                 spans_t.data_ptr(), chunk]
+                 spans_t.data_ptr() if spans_t is not None else None, chunk]
     args += [tensors[4].data_ptr(), len(bands), *plan]
     return tuple(args), tensors

@@ -461,6 +461,10 @@ RESIZE_CASES = {
     # shorter, bf16 rows start mid-word); more tiles than resident CTAs
     "tile_edge": ((4, 8, 61, 47), (183, 141), False),
     "many_planes": ((64, 256, 10, 10), (20, 20), False),
+    # bands too wide for two stages, staged in parts: 8x to 2048 columns,
+    # and a 1-pixel input read by a 256² plane
+    "parts_8x_wide": ((1, 4, 64, 256), (512, 2048), False),
+    "parts_pool_256": ((2, 64, 1, 1), (256, 256), False),
 }
 
 

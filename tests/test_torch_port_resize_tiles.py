@@ -63,9 +63,9 @@ def replay(g, in_size, ac, scales=None):
     (in_h, in_w), elem, planes = in_size, g.element_size(), n * c
     flat = g.float().reshape(-1).numpy()
     sh, sw = scales or (None, None)
-    (row_chunk, col_chunk, bands, _, _, band_rows, tile_planes, rows_max,
-     g_pitch, h_pitch, *_) = rb._plan(planes, in_h, in_w, out_h, out_w, elem,
-                                      ac, sh, sw)
+    (row_chunk, col_chunk, bands, band_rows, tile_planes, rows_max,
+     stage_rows, g_pitch, h_pitch) = rb._plan(planes, in_h, in_w, out_h,
+                                              out_w, elem, ac, sh, sw)
     row_method, rows, _, row_spans, _ = rb._axis(in_h, out_h, ac, sh,
                                                  row_chunk)
     col_method, cols, _, col_spans, _ = rb._axis(in_w, out_w, ac, sw,
@@ -81,49 +81,53 @@ def replay(g, in_size, ac, scales=None):
         in_rows = min(band_rows, in_h - i_lo)
         o_lo, o_rows = bands[b][:2]
         g_row0 = plane0 * out_h + o_lo
-        rows_staged = tp * o_rows
-        assert rows_staged <= tile_planes * rows_max
-        stage = np.full(tile_planes * rows_max * g_pitch * per_word, np.nan,
-                        np.float32)
-        for r in range(rows_staged):
-            e0 = (g_row0 + r) * out_w
-            shift = 0 if elem == 4 else e0 & 1
-            words = ((out_w + shift) * elem + 3) // 4
-            assert words <= g_pitch
-            for m in range(words * per_word):
-                e = e0 - shift + m
-                stage[r * g_pitch * per_word + m] = (
-                    flat[e] if e < flat.size else np.inf)
+        assert tp * o_rows <= tile_planes * rows_max
         h = np.full(tile_planes * rows_max * h_pitch, np.nan, np.float32)
-        for u in range(rows_staged * -(-in_w // col_chunk)):
-            chunk, r = divmod(u, rows_staged)
-            shift = 0 if elem == 4 else ((g_row0 + r) * out_w) & 1
-            base = r * g_pitch * per_word + shift
-            j0 = chunk * col_chunk
-            j1 = min(j0 + col_chunk, in_w)
+        # the band's g rows, stage_rows at a time: stage them, W pass them
+        for r0 in range(0, tp * o_rows, stage_rows):
+            rows_staged = min(stage_rows, tp * o_rows - r0)
+            stage = np.full(stage_rows * g_pitch * per_word, np.nan,
+                            np.float32)
+            for r in range(rows_staged):
+                e0 = (g_row0 + r0 + r) * out_w
+                shift = 0 if elem == 4 else e0 & 1
+                words = ((out_w + shift) * elem + 3) // 4
+                assert words <= g_pitch
+                for m in range(words * per_word):
+                    e = e0 - shift + m
+                    stage[r * g_pitch * per_word + m] = (
+                        flat[e] if e < flat.size else np.inf)
+            unit_cols = col_chunk if col_method == rb.SCAN else rb.KCOLS
+            for u in range(rows_staged * -(-in_w // unit_cols)):
+                chunk, r = divmod(u, rows_staged)
+                shift = 0 if elem == 4 else ((g_row0 + r0 + r) * out_w) & 1
+                base = r * g_pitch * per_word + shift
+                j0 = chunk * unit_cols
+                j1 = min(j0 + unit_cols, in_w)
 
-            def get(o, base=base):
-                return stage[base + o]
+                def get(o, base=base):
+                    return stage[base + o]
 
-            def store(j, v, r=r):
-                h[r * h_pitch + j] = v
+                def store(j, v, r=r0 + r):
+                    h[r * h_pitch + j] = v
 
-            if col_method == rb.SCAN:
-                scan(get, cols, col_spans[chunk], j0, j1, store)
-            else:
-                for j in range(j0, j1):
-                    store(j, input_sum(get, cols, j))
+                if col_method == rb.SCAN:
+                    scan(get, cols, col_spans[chunk], j0, j1, store)
+                else:
+                    for j in range(j0, j1):
+                        store(j, input_sum(get, cols, j))
         e0 = (plane0 * in_h + i_lo) * in_w
         vec = 16 // elem
         shift = e0 % vec
         tile_dx = np.full(tile_planes * band_rows * in_w + 16, np.nan,
                           np.float32)
-        units = -(-in_rows // row_chunk)
+        unit_rows = row_chunk if row_method == rb.SCAN else rb.KROWS
+        units = -(-in_rows // unit_rows)
         for v in range(tp * units * in_w):
             rest, j = divmod(v, in_w)
             q, kc = divmod(rest, units) if tile_planes > 1 else (0, rest)
-            i0 = i_lo + kc * row_chunk
-            i1 = min(i0 + row_chunk, i_lo + in_rows)
+            i0 = i_lo + kc * unit_rows
+            i1 = min(i0 + unit_rows, i_lo + in_rows)
 
             def get(o, q=q, j=j):
                 return h[(q * o_rows + o - o_lo) * h_pitch + j]
@@ -132,7 +136,7 @@ def replay(g, in_size, ac, scales=None):
                 tile_dx[shift + (q * in_rows + i - i_lo) * in_w + j] = a
 
             if row_method == rb.SCAN:
-                scan(get, rows, row_spans[i0 // row_chunk], i0, i1, store)
+                scan(get, rows, row_spans[i0 // unit_rows], i0, i1, store)
             else:
                 for i in range(i0, i1):
                     store(i, input_sum(get, rows, i))
@@ -150,7 +154,8 @@ def replay(g, in_size, ac, scales=None):
 # (by input index) with several bands, a ragged bf16 width (odd rows start
 # mid-word), align_corners, P planes a tile with a short last group; a
 # downsample on both axes (scans, bands a multiple of the row chunk); the
-# odd grid read at step 2; a 1-pixel input; one axis each way
+# odd grid read at step 2; a 1-pixel input; one axis each way; bands staged
+# in parts: wide rows at 8x, a 1-pixel input read by a large plane
 CASES = {
     "up_2x_bands": ((1, 2, 9, 6), (18, 12), False, None),
     "up_ragged_odd_width": ((1, 2, 7, 9), (17, 23), False, None),
@@ -160,6 +165,8 @@ CASES = {
     "down_half_odd": ((1, 3, 9, 9), (4, 4), False, 0.5),
     "one_pixel": ((3, 2, 1, 1), (9, 8), False, None),
     "down_rows_up_cols": ((1, 2, 12, 5), (5, 11), False, None),
+    "parts_8x_wide": ((1, 2, 3, 8), (24, 64), False, None),
+    "parts_one_pixel": ((2, 1, 1, 1), (40, 40), False, None),
 }
 
 
@@ -182,3 +189,35 @@ def test_kernel_tiles_give_the_plain_versions_bits(name, dtype, small_plans):
     got, written = replay(g, (h, w), ac, scales)
     assert (written == 1).all()
     assert torch.equal(got, rb.resize_backward_plain(g, (h, w), ac, scales))
+
+
+# (planes, in_h, in_w, out_h, out_w, bytes an element): one input row's g
+# rows at 8x over 2048 columns, and a 1-pixel input read by a 256² plane,
+# whose bands do not fit two stages whole
+WIDE_BANDS = {
+    "up_8x_2048_f32": (4, 64, 256, 512, 2048, 4),
+    "up_8x_2048_bf16": (4, 64, 256, 512, 2048, 2),
+    "pool_1_to_256_f32": (8192, 1, 1, 256, 256, 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_BANDS))
+def test_wide_bands_are_staged_in_parts_within_the_plan(name):
+    planes, in_h, in_w, out_h, out_w, elem = WIDE_BANDS[name]
+    (row_chunk, col_chunk, bands, band_rows, tile_planes, rows_max,
+     stage_rows, g_pitch, h_pitch) = rb._plan(planes, in_h, in_w, out_h,
+                                              out_w, elem, False)
+    assert band_rows == 1 and tile_planes == 1
+    assert 1 <= stage_rows < rows_max
+    tables = sum(rb._axis(i, o, False, None, ch)[1].size
+                 for i, o, ch in ((in_h, out_h, row_chunk),
+                                  (in_w, out_w, col_chunk)))
+    assert rb._smem_bytes(1, 1, rows_max, stage_rows, g_pitch, h_pitch, in_w,
+                          elem, tables) <= rb.SMEM_PLAN_BYTES
+
+
+def test_a_row_past_the_shared_memory_is_refused():
+    """One staged g row of 60000 float32 elements (two stages: 469 KB)
+    cannot fit a CTA's 227 KB."""
+    with pytest.raises(ValueError, match="shared memory"):
+        rb._plan(1, 1, 1, 1, 60000, 4, False)

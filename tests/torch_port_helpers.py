@@ -6,6 +6,7 @@ packages; JAX weights reach the port through ``bridge.py``.
 
 import jax
 import numpy as np
+import threadpoolctl
 import torch
 
 from image_segmentation_lab_tpu.core.initialize.checkpoint import \
@@ -17,6 +18,11 @@ from image_segmentation_lab_tpu_torch.core.fileio import load_python_config
 # TF32 (about three digits), which no tolerance below allows for
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
+# the tiny CPU models here run no faster on more than one intra-op thread;
+# a pool of a thread a core in each test process only spins, and takes CPU
+# time from the other processes of a parallel run
+torch.set_num_threads(1)
+threadpoolctl.threadpool_limits(1, user_api="blas")  # numpy's BLAS too
 
 
 def tiny_flagship_cfg(test_cfg=None, num_classes=2):
