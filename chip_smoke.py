@@ -39,7 +39,9 @@ printing its own lines; any failure raises and the exit code is not 0:
    projection as the models pass them (MiT: q alone and k, v views of the
    fused kv, also at sr 1); in float32 a second call must give the same
    bits and the split of q, k and v its plain version's bits; beside it
-   ``F.scaled_dot_product_attention`` as a yardstick (never on the path);
+   ``F.scaled_dot_product_attention`` as a yardstick (never on the path),
+   timed with the plain version at the rows of fixed shapes (at the MiT
+   and phase 22 rows both stand in PERF.md's kernel table);
 5. DeepLabV3 slice: full-width DeepLabV3-R50-d8 through ``init_model`` and
    ``inference_model`` (whole and slide inference) on four synthetic 512²
    images, then ``SegEvaluator`` on the logits; the confusion kernel's
@@ -72,7 +74,8 @@ printing its own lines; any failure raises and the exit code is not 0:
    cancels); a second call must give the same bits; beside them the
    backward of
    ``F.scaled_dot_product_attention`` in the same dtype as a yardstick
-   (never on the path) and the device time of ``backward_delta`` (the
+   (never on the path; with the plain version, not retimed at the MiT and
+   phase 22 rows) and the device time of ``backward_delta`` (the
    kernels' delta = rowsum(dO·O), plain torch);
 8b. resize backward kernel (the gradient of the bilinear resize, two
    separable passes through shared memory, no atomics): against its plain
@@ -83,12 +86,15 @@ printing its own lines; any failure raises and the exit code is not 0:
    1 and 6 x 6 to 80²) and Mask2Former's pixel decoder at 8 x 640²
    (M2F_RESIZE_SHAPES), in float32 and bfloat16, the rest of the pyramid
    heads' amp steps in bfloat16 (PYRAMID_RESIZE_SHAPES), phase 22's
-   (DECODER_RESIZE_SHAPES) and an align_corners upsample
-   (ALIGN_CORNERS_RESIZES); one launch a call, the bf16 result the
+   (DECODER_RESIZE_SHAPES), an align_corners upsample
+   (ALIGN_CORNERS_RESIZES) and phase 23's in bfloat16
+   (REALTIME_RESIZE_SHAPES); one launch a call, the bf16 result the
    kernel's float32 result rounded once and a second call the same bits;
    beside it ``F.interpolate``'s own backward
    (``aten::upsample_bilinear2d_backward``) as a yardstick, and each row's
-   device time over the library's and its bound over its device time;
+   device time over the library's and its bound over its device time
+   (yardsticks timed at phase 23's rows and RESIZE_HEADLINES; at the
+   others they stand in PERF.md's kernel table);
 9. SETR train slice: full-width SETR-PUP ViT-S/16 through ``init_model``,
    ``create_train_state`` and ``make_train_step`` (SGD and StepLR of the
    kvasir schedule, drop path 0.1 from a CUDA generator) for 10 steps on
@@ -170,11 +176,11 @@ printing its own lines; any failure raises and the exit code is not 0:
 17. the CLIs: ``image_segmentation_lab_tpu_torch.train.main`` in this
    process under ``torch.profiler`` on a Kvasir-shaped synthetic dataset
    (``SyntheticDataset`` 640² items through the Kvasir YAMLs,
-   ``ignore_index=-1``, 48 train items: 3 steps of the schedule's 16, 16
-   val items with ``return_ori_seg_gt``) at the flagship's full width
-   with the kvasir schedule as it is (amp, deterministic, SGD and StepLR)
-   and ``--epochs 1``: step and epoch times, the checkpoints' sizes and
-   write times, validation ms a batch, the launches (4 of K1, 9 of the
+   ``ignore_index=-1``, 48 train items: 3 steps of the schedule's 16, 8
+   val items, one batch, with ``return_ori_seg_gt``) at the flagship's
+   full width with the kvasir schedule as it is (amp, deterministic, SGD
+   and StepLR) and ``--epochs 1``: step and epoch times, the checkpoints'
+   sizes and write times, validation ms a batch, the launches (2 of K1, 9 of the
    bf16 resize backward, no other), device time by kernel class;
    ``last.pth`` and ``best.pth`` load back strictly into fresh port
    models; then ``val.main`` on ``best.pth`` with ``--amp`` (its mIoU
@@ -277,9 +283,24 @@ printing its own lines; any failure raises and the exit code is not 0:
    steps, then ``val.main --amp`` on its ``best.pth`` (mIoU within 0.05 of
    the train run's).  Phases 4, 8 and 8b hold the flash kernels and the
    resize backward at this phase's shapes too (DECODER_FLASH_CASES,
-   DECODER_RESIZE_SHAPES, MultiLevelNeck's levels with the user's scale).
-   The wall seconds of each phase are printed at the end
-   (``phase seconds``).
+   DECODER_RESIZE_SHAPES, MultiLevelNeck's levels with the user's scale);
+23. SegNeXt-T (MSCAN and LightHamHead's NMF), PIDNet-S and DDRNet-23-slim
+   (REALTIME_CASES), the last two with their OHEM and boundary losses:
+   each served whole at 16 x 640² (bench.py's geometry) in float32 and
+   under amp with a breakdown of each, no flash launch, SegNeXt's serving
+   twice with the same bits (the NMF's eval bases), one 320² window held
+   against the port on the CPU (with the card's NMF bases), validated over
+   two val batches of 8 (1 K1 launch a batch, counts = argmax +
+   bincount), two deterministic amp steps at the schedule's train batch
+   of 640² (SegNeXt: the SegFormer schedule's AdamW; PIDNet and DDRNet:
+   the kvasir SGD) with 3, 14 and 9 bf16 resize-backward launches a step
+   and a profiled third, every OHEM threshold and NMF on the card, every
+   resize backward's shape one that phase 8b holds
+   (REALTIME_RESIZE_SHAPES); ``torch.sort``'s ms at the step's 6.55 M
+   pixels; one float32 step of PIDNet-S at 2 x 256² against float64 on
+   the CPU on the card's ReLU branches, OHEM kept sets and boundary
+   masks (``RealtimeChoices``).  The wall seconds of each phase are
+   printed at the end (``phase seconds``).
 
 Kernel times: the wrapper's median of 20 calls by CUDA events and the
 kernel's own device time from ``torch.profiler`` (for SDPA's forward, of
@@ -341,8 +362,13 @@ from image_segmentation_lab_tpu_torch.models.backbones import mit, vit
 from image_segmentation_lab_tpu_torch.models.backbones.poolformer import \
     PoolFormerBlock
 from image_segmentation_lab_tpu_torch.models.basic import LayerNorm
+from image_segmentation_lab_tpu_torch.models.backbones.mscan import \
+    MSCABlock
 from image_segmentation_lab_tpu_torch.models.decode_heads import (
-    Mask2FormerHead, MaskFormerHead, SegmenterMaskTransformerHead)
+    Mask2FormerHead, MaskFormerHead, SegmenterMaskTransformerHead, ham_head,
+    pid_head)
+from image_segmentation_lab_tpu_torch.models.losses import \
+    ohem_cross_entropy
 from image_segmentation_lab_tpu_torch.ops import (confusion, flash_attention,
                                                   matching, resize_backward)
 from image_segmentation_lab_tpu_torch.train_state import (
@@ -472,9 +498,9 @@ AMP_GRAD_SHARE = 0.25
 # relative norm per tensor
 AMP_DETERMINISTIC_SHARE = 1e-6
 # phase 17: the CLIs on a Kvasir-shaped synthetic dataset at AUG_SIZE²;
-# CLI_TRAIN_STEPS steps of the schedule's batch, two val batches
+# CLI_TRAIN_STEPS steps of the schedule's batch, one val batch
 CLI_TRAIN_STEPS = 3
-CLI_VAL_BATCHES = 2
+CLI_VAL_BATCHES = 1
 CLI_DATASET = """
 dataset = dict(
     train=dict(type='SyntheticDataset', length={train}, ignore_index=-1,
@@ -716,6 +742,36 @@ DECODER_RESIZE_SHAPES = [
 # align_corners=True, which no config of the main paths takes: UPerNet's
 # 2x top-down step on 256 channels, in both dtypes
 ALIGN_CORNERS_RESIZES = [((16, 256, 40, 40), (80, 80))]
+# the resize-backward rows of the kernels line: SETR's largest upsample
+# and DeepLabV3's 640² image pool
+RESIZE_HEADLINES = [((8, 256, 160, 160), (320, 320)),
+                    ((16, 512, 1, 1), (80, 80))]
+# phase 23, SegNeXt-T, PIDNet-S and DDRNet-23-slim: each served whole at
+# REALTIME_BATCH x REALTIME_IMAGE_SIZE² (bench.py's geometry) in float32
+# and under amp, validated over two val batches, two deterministic amp
+# steps at its schedule's train batch of AUG_SIZE² (SegNeXt: the SegFormer
+# schedule's AdamW; PIDNet and DDRNet: the kvasir SGD) and a profiled
+# third; per config its bilinear resizes under grad a step: SegNeXt's
+# LightHamHead levels 2-3 to level 1 and its loss; PIDNet-S's two PagFMs
+# (the gate's f_i and x_i each), its two diff taps, PAPPM's four pools, the
+# context and the three heads' logits; DDRNet's two compressions, DAPPM's
+# four pools, the context and the two heads' logits
+REALTIME_CASES = [  # name, config, schedule, resizes a step
+    ("segnext_mscan-t", ROOT / "configs/network/segnext/segnext_mscan-t.py",
+     SEGFORMER_SCHEDULE, 3),
+    ("pidnet-s", ROOT / "configs/network/pidnet/pidnet-s.py", SCHEDULE, 14),
+    ("ddrnet_23-slim", ROOT / "configs/network/ddrnet/ddrnet_23-slim.py",
+     SCHEDULE, 9)]
+REALTIME_BATCH, REALTIME_IMAGE_SIZE = 16, 640
+REALTIME_AGREE = "pidnet-s"
+REALTIME_AGREE_BATCH, REALTIME_AGREE_SIZE = 2, 256
+# those resizes at 16 x 640² in bf16 (the amp steps) that no earlier phase
+# holds; the logits' (16, 2, 80²) -> 640² is DeepLabV3's
+REALTIME_RESIZE_SHAPES = [
+    ((16, 160, 40, 40), (80, 80)), ((16, 256, 20, 20), (80, 80)),
+    *(((16, c, s, s), (80, 80)) for c in (32, 64) for s in (40, 20)),
+    *(((16, c, s, s), (10, 10)) for c in (96, 128) for s in (5, 3, 2, 1)),
+    ((16, 128, 10, 10), (80, 80)), ((16, 1, 80, 80), (640, 640))]
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
@@ -1062,6 +1118,16 @@ def decoder_rows(backward):
             for dtype in (bwd if backward else fwd)]
 
 
+def yardstick(restated, timer, *args):
+    """``timer(*args)``, the time of a yardstick (the plain version, SDPA,
+    ``F.interpolate``'s backward) beside a kernel's row, or None for a
+    ``restated`` row, which keeps every check and the kernel's own times
+    while its yardsticks stand in PERF.md's kernel table: the flash
+    kernels' MiT and phase 22 rows, the resize backward's rows of the
+    phases before 23."""
+    return None if restated else timer(*args)
+
+
 def flash_phase(device, l2_flush):
     gen = torch.Generator(device=device).manual_seed(1)
     rows = []
@@ -1117,12 +1183,14 @@ def flash_phase(device, l2_flush):
             device_ms=device_ms(
                 lambda: flash_attention.flash_attention_forward(*args),
                 FLASH_FWD_KERNEL[dtype], flush),
-            plain_ms=cuda_ms(lambda: flash_attention.attention_plain(*args),
-                             flush),
-            sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, scale=scale), flush),
-            sdpa_device_ms=device_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, scale=scale), None, flush),
+            plain_ms=yardstick(mit or path, cuda_ms, lambda: (
+                flash_attention.attention_plain(*args)), flush),
+            sdpa_ms=yardstick(mit or path, cuda_ms, lambda: (
+                F.scaled_dot_product_attention(qt, kt, vt, scale=scale)),
+                flush),
+            sdpa_device_ms=yardstick(mit or path, device_ms, lambda: (
+                F.scaled_dot_product_attention(qt, kt, vt, scale=scale)),
+                None, flush),
             bound_ms=bound, bound_by=bound_by,
             ctas=math.ceil(lq / FLASH_ROWS_PER_CTA) * h * n,
             mit=mit, path=path)
@@ -1183,7 +1251,10 @@ def randomize_(model, seed):
     N(0, 1/fan_in) and the classifiers get unit gain, so logits are of
     order one.  PoolFormer's layer scales (1e-5 at init, which would leave
     every block near the identity) are drawn in [0.5, 1], Segmenter's raw
-    patch and class projections at unit gain."""
+    patch and class projections at unit gain, MSCAN's layer scales (1e-2
+    at init) in [0.1, 0.3], and the classifiers of PIDNet's and DDRNet's
+    segmentheads at unit gain (at std 0.01 no boundary logit would reach
+    the 0.8 gate)."""
     gen = torch.Generator().manual_seed(seed)
 
     def fill(t, lo, hi):
@@ -1212,6 +1283,11 @@ def randomize_(model, seed):
             elif isinstance(m, SegmenterMaskTransformerHead):
                 unit_gain(m.proj_patch)
                 unit_gain(m.proj_classes)
+            elif isinstance(m, MSCABlock):
+                fill(m.layer_scale_1, 0.1, 0.3)
+                fill(m.layer_scale_2, 0.1, 0.3)
+            elif isinstance(m, pid_head._BasePIDHead):
+                unit_gain(m.cls.weight)
         for head in (model.decode_head, model.auxiliary_head):
             if getattr(head, "conv_seg", None) is not None:
                 unit_gain(head.conv_seg.weight)
@@ -1452,13 +1528,15 @@ def amp_slice_phase(model, backbone, batch, size, layers, what):
 def cpu_agreement_phase(model, x_nchw, h, w, what):
     """One window on the card and on the CPU at the slice tolerance; the
     CPU takes the card's blocked maps of a masked attention
-    (``MaskBranches``)."""
+    (``MaskBranches``) and its NMF bases (``NMFBases``: the two devices'
+    generators give other bits)."""
     window = x_nchw[:1, :, :h, :w]
     record = MaskBranches()
+    bases = NMFBases()
     with torch.no_grad():
-        with record.recording():
+        with record.recording(), bases.recording():
             gpu = model.encode_decode(window).cpu().numpy()
-        with record.replaying():
+        with record.replaying(), bases.replaying():
             cpu = copy.deepcopy(model).cpu().encode_decode(
                 window.cpu()).numpy()
     np.testing.assert_allclose(gpu, cpu, rtol=RTOL, atol=ATOL)
@@ -1612,11 +1690,12 @@ def flash_backward_phase(device, l2_flush):
             dkv_bound_ms=bounds["dkv"][0], dkv_bound_by=bounds["dkv"][1],
             delta_device_ms=device_ms(
                 lambda: flash_attention.backward_delta(o, do), None, flush),
-            plain_ms=cuda_ms(
-                lambda: flash_attention.attention_backward_plain(*args),
-                flush),
-            sdpa_backward_ms=cuda_ms(sdpa_backward, flush),
-            sdpa_backward_device_ms=device_ms(sdpa_backward, None, flush),
+            plain_ms=yardstick(mit or path, cuda_ms, lambda: (
+                flash_attention.attention_backward_plain(*args)), flush),
+            sdpa_backward_ms=yardstick(mit or path, cuda_ms, sdpa_backward,
+                                       flush),
+            sdpa_backward_device_ms=yardstick(mit or path, device_ms,
+                                              sdpa_backward, None, flush),
             dq_ctas=math.ceil(lq / FLASH_ROWS_PER_CTA) * h * n,
             dkv_ctas=math.ceil(lk / FLASH_ROWS_PER_CTA) * h * n,
             mit=mit, path=path)
@@ -1636,7 +1715,8 @@ def flash_backward_phase(device, l2_flush):
                 split_exact=split_exact, split_ms=cuda_ms(split_call, flush),
                 split_device_ms=device_ms(split_call, "split_bf16x3_kernel",
                                           flush),
-                split_plain_ms=cuda_ms(split_plain, flush),
+                split_plain_ms=yardstick(mit or path, cuda_ms, split_plain,
+                                         flush),
                 split_bound_ms=split_bound[0],
                 split_bound_by=split_bound[1],
                 dq_cuda_core_bound_ms=bounds["dq_cuda_cores"][0],
@@ -1659,11 +1739,17 @@ def resize_backward_phase(device, l2_flush):
     DeepLabV3's and SegFormer's train steps and Mask2Former's pixel decoder
     in both dtypes and of the pyramid heads' amp steps in bf16, phase 22's
     (DECODER_RESIZE_SHAPES, MultiLevelNeck's with the user's scale) and
-    ALIGN_CORNERS_RESIZES; times of the kernel, the plain version and
-    ``F.interpolate``'s own backward, the bound and the kernel's device
-    time over the library's."""
+    ALIGN_CORNERS_RESIZES, and of phase 23's amp steps in bf16; times of
+    the kernel, the bound, and at phase 23's rows and RESIZE_HEADLINES
+    those of the plain version and ``F.interpolate``'s own backward and
+    the kernel's device time over the library's."""
     gen = torch.Generator(device=device).manual_seed(3)
     rows = []
+    # the rows whose yardsticks are timed: phase 23's and the two of the
+    # kernels line; the others keep every check and the kernel's own
+    # times, while their plain and library times stand in PERF.md's kernel
+    # table
+    timed_in_full = {*RESIZE_HEADLINES, *REALTIME_RESIZE_SHAPES}
     both = dict.fromkeys((*SETR_RESIZES, *DEEPLAB_RESIZES,
                           *DEEPLAB_RESIZES_640, *SEGFORMER_RESIZE_SHAPES,
                           *PSPNET_RESIZE_SHAPES, *M2F_RESIZE_SHAPES))
@@ -1673,8 +1759,11 @@ def resize_backward_phase(device, l2_flush):
                 for shape, size in dict.fromkeys(PYRAMID_RESIZE_SHAPES)]
              + [(*case, False) for case in DECODER_RESIZE_SHAPES]
              + [(shape, size, None, f32_bf16, True)
-                for shape, size in ALIGN_CORNERS_RESIZES])
+                for shape, size in ALIGN_CORNERS_RESIZES]
+             + [(shape, size, None, (torch.bfloat16,), False)
+                for shape, size in REALTIME_RESIZE_SHAPES])
     for (n, c, h, w), size, scales, dtypes, ac in cases:
+        restated = ((n, c, h, w), size) not in timed_in_full
         for dtype in dtypes:
             gy = torch.randn((n, c, *size), generator=gen,
                              device=device).to(dtype)
@@ -1724,7 +1813,8 @@ def resize_backward_phase(device, l2_flush):
             flush = l2_flush.zero_
             # the library's atomic backward takes up to 0.26 s a call at
             # the image pools: 5 calls a measurement where one takes 5 ms
-            lib_runs = 20 if cuda_ms(library, flush, 1, 1) < 5.0 else 5
+            lib_runs = yardstick(restated, lambda: (
+                20 if cuda_ms(library, flush, 1, 1) < 5.0 else 5))
             row = dict(
                 shape=[n, c, h, w], size=list(size), scales=scales,
                 align_corners=ac, dtype=str(dtype).replace("torch.", ""),
@@ -1734,13 +1824,15 @@ def resize_backward_phase(device, l2_flush):
                 max_abs_grad=float(ref.abs().max()),
                 ms=cuda_ms(kernel, flush),
                 device_ms=device_ms(kernel, "resize_backward_kernel",
-                                    flush, profiles=3),
-                plain_ms=cuda_ms(plain, flush, warmup=1, runs=5),
-                library_ms=cuda_ms(library, flush, 1, lib_runs),
-                library_device_ms=device_ms(library, None, flush,
-                                            runs=lib_runs),
+                                    flush, profiles=1 if restated else 3),
+                plain_ms=yardstick(restated, cuda_ms, plain, flush, 1, 5),
+                library_ms=yardstick(restated, cuda_ms, library, flush, 1,
+                                     lib_runs),
+                library_device_ms=yardstick(restated, lambda: device_ms(
+                    library, None, flush, runs=lib_runs)),
                 library_runs=lib_runs, bound_ms=bound, bound_by=bound_by)
-            row["vs_library"] = row["device_ms"] / row["library_device_ms"]
+            row["vs_library"] = yardstick(
+                restated, lambda: row["device_ms"] / row["library_device_ms"])
             row["bound_share"] = bound / row["device_ms"]
             print("resize backward:", json.dumps(row), flush=True)
             rows.append(row)
@@ -3068,8 +3160,7 @@ def determinism_cost(device, config=CONFIG, schedule=SCHEDULE,
                      what="deeplabv3"):
     """The fused amp train step of the CLI (``schedule``'s batch at
     AUG_SIZE², augmentation fused in, its optimizer) with deterministic
-    algorithms off and on, DETERMINISM_STEPS steps a block, blocks
-    alternating twice."""
+    algorithms off and on, a block of DETERMINISM_STEPS steps each."""
     n = load_python_config(schedule)["train_batch_size"]
     model = init_model(config, device=device)
     randomize_(model, seed=0)
@@ -3086,15 +3177,14 @@ def determinism_cost(device, config=CONFIG, schedule=SCHEDULE,
     times = {"off": [], "on": []}
     try:
         with policy_scope("bf16"):
-            for _ in range(2):
-                for mode in ("off", "on"):
-                    torch.use_deterministic_algorithms(mode == "on")
-                    torch.backends.cudnn.deterministic = mode == "on"
-                    torch.backends.cudnn.benchmark = False
-                    step(*raw, gen)  # cuDNN picks its algorithms
-                    timed = timed_call(step, times[mode])
-                    for _ in range(DETERMINISM_STEPS):
-                        timed(*raw, gen)
+            for mode in ("off", "on"):
+                torch.use_deterministic_algorithms(mode == "on")
+                torch.backends.cudnn.deterministic = mode == "on"
+                torch.backends.cudnn.benchmark = False
+                step(*raw, gen)  # cuDNN picks its algorithms
+                timed = timed_call(step, times[mode])
+                for _ in range(DETERMINISM_STEPS):
+                    timed(*raw, gen)
         ops = {}
         for mode in ("off", "on"):
             torch.use_deterministic_algorithms(mode == "on")
@@ -3552,6 +3642,90 @@ class MaskBranches:
                                      "the recording")
 
 
+class NMFBases:
+    """The NMF's random bases (``ham_head.draw_bases``): ``recording()``
+    keeps them as the card draws them, ``replaying()`` hands them out in
+    the same order, on the caller's device and dtype."""
+
+    def __init__(self):
+        self.bases = []
+
+    @contextlib.contextmanager
+    def recording(self):
+        draw = ham_head.draw_bases
+
+        def rec(*args):
+            self.bases.append(draw(*args))
+            return self.bases[-1]
+
+        with mock.patch.object(ham_head, "draw_bases", rec):
+            yield
+
+    @contextlib.contextmanager
+    def replaying(self):
+        taken = iter(self.bases)
+        with mock.patch.object(ham_head, "draw_bases",
+                               lambda shape, device, dtype, training:
+                               next(taken).to(device, dtype)):
+            yield
+        if next(taken, None) is not None:
+            raise AssertionError("the replay drew fewer bases than the "
+                                 "recording")
+
+
+class RealtimeChoices:
+    """The discrete choices of a PIDNet or DDRNet step beside its ReLU
+    branches: OHEM's kept sets (``ohem_cross_entropy.ohem_kept``) and
+    PIDHead's confident-boundary masks (``pid_head.boundary_confident``).
+    ``recording()`` keeps them (on the CPU) with the devices they were
+    made on; ``replaying()`` hands them out in the same order, as
+    ``replayed_branches`` does for ReLUs: a probability within rounding of
+    the threshold would take the other side in float64."""
+
+    def __init__(self):
+        self.kept, self.confident, self.devices = [], [], []
+
+    def _patches(self, kept, confident):
+        return (mock.patch.object(ohem_cross_entropy, "ohem_kept", kept),
+                mock.patch.object(pid_head, "boundary_confident", confident))
+
+    @contextlib.contextmanager
+    def recording(self):
+        kept, confident = (ohem_cross_entropy.ohem_kept,
+                           pid_head.boundary_confident)
+
+        def rec_kept(gt_prob, *args):
+            self.devices.append(gt_prob.device.type)
+            self.kept.append(kept(gt_prob, *args))
+            return self.kept[-1]
+
+        def rec_confident(logit_d, *args):
+            self.confident.append(confident(logit_d, *args))
+            return self.confident[-1]
+
+        with contextlib.ExitStack() as stack:
+            for patch in self._patches(rec_kept, rec_confident):
+                stack.enter_context(patch)
+            yield
+        self.kept = [t.cpu() for t in self.kept]
+        self.confident = [t.cpu() for t in self.confident]
+
+    @contextlib.contextmanager
+    def replaying(self):
+        kept, confident = iter(self.kept), iter(self.confident)
+        with contextlib.ExitStack() as stack:
+            for patch in self._patches(
+                    lambda gt_prob, *args: next(kept).to(gt_prob.device),
+                    lambda logit_d, *args: next(confident).to(
+                        logit_d.device)):
+                stack.enter_context(patch)
+            yield
+        for left in (kept, confident):
+            if next(left, None) is not None:
+                raise AssertionError("the replay took fewer choices than "
+                                     "the recording")
+
+
 @contextlib.contextmanager
 def mask_step_timers(times):
     """Each auction call and each ``_loss_points`` call (the point draws,
@@ -3979,6 +4153,176 @@ def decoder_cli_phase(device):
     return dict(train=train, val=val["amp"])
 
 
+def realtime_case(name):
+    """The REALTIME_CASES entry of ``name``."""
+    return next(case for case in REALTIME_CASES if case[0] == name)
+
+
+@contextlib.contextmanager
+def realtime_step_probes(seen):
+    """Appends to ``seen`` the device of every OHEM kept set, NMF input
+    and resize backward's gradient, with the latter's ((N, C, H, W), (h,
+    w), dtype)."""
+    kept, nmf, backward = (ohem_cross_entropy.ohem_kept,
+                           ham_head.NMF2D.forward, resize_ops.resize_backward)
+
+    def probe_kept(gt_prob, *args):
+        seen.append(("ohem", gt_prob.device.type, gt_prob.numel()))
+        return kept(gt_prob, *args)
+
+    def probe_nmf(self, x):
+        seen.append(("nmf", x.device.type, tuple(x.shape)))
+        return nmf(self, x)
+
+    def probe_backward(grad, in_size, *args):
+        seen.append(("resize", grad.device.type,
+                     (tuple(grad.shape), tuple(in_size),
+                      str(grad.dtype).replace("torch.", ""))))
+        return backward(grad, in_size, *args)
+
+    with mock.patch.object(ohem_cross_entropy, "ohem_kept", probe_kept), \
+            mock.patch.object(ham_head.NMF2D, "forward", probe_nmf), \
+            mock.patch.object(resize_ops, "resize_backward",
+                              probe_backward):
+        yield
+
+
+def sort_cost(device, pixels):
+    """OHEM's threshold at ``pixels`` ground-truth probabilities (a tenth
+    of them ignored, +inf): ``torch.sort`` (ms by CUDA events, device ms
+    of its kernels) and the whole ``ohem_kept``; and whether
+    ``torch.kthvalue`` runs on a CUDA tensor under deterministic
+    algorithms, with its ms where it does (it takes ``k`` as a host int,
+    which the data set: a sync a call, where the sort's gather at a
+    tensor index has none)."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    p = torch.rand(pixels, generator=gen, device=device)
+    valid = torch.rand(pixels, generator=gen, device=device) >= 0.1
+    p = torch.where(valid, p, torch.full((), float("inf"), device=device))
+    k = int(valid.sum())  # the regime of fewer valid pixels than min_kept
+    kthvalue_ms = None
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.kthvalue(p, k)
+        kthvalue_ms = cuda_ms(lambda: torch.kthvalue(p, k))
+    except RuntimeError:
+        pass
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return dict(pixels=pixels, sort_ms=cuda_ms(lambda: torch.sort(p)),
+                sort_device_ms=device_ms(lambda: torch.sort(p), None, None),
+                ohem_kept_ms=cuda_ms(lambda: ohem_cross_entropy.ohem_kept(
+                    p, valid, 131072, 0.9)),
+                kthvalue_deterministic=kthvalue_ms is not None,
+                kthvalue_ms=kthvalue_ms)
+
+
+def realtime_phase(device):
+    """Phase 23, SegNeXt-T, PIDNet-S and DDRNet-23-slim at full width
+    (REALTIME_CASES): each served whole at REALTIME_BATCH x
+    REALTIME_IMAGE_SIZE² in float32 and under amp (no flash launch),
+    SegNeXt's serving twice with the same bits (the NMF's eval bases), one
+    320² window held against the port on the CPU (with the card's NMF
+    bases), validated over two val batches (1 K1 launch a batch), two
+    deterministic amp steps at the schedule's train batch of AUG_SIZE²
+    with each step's bf16 resize-backward launches and a profiled third,
+    every OHEM threshold and NMF on the card and every resize backward's
+    shape among phase 8b's; the sort's ms at the step's pixels; one float32
+    step of PIDNet-S at 2 x 256² against float64 on the CPU on the card's
+    ReLU branches, OHEM kept sets and boundary masks.  The launches of
+    each path, per model."""
+    out, held = {}, set()
+    for shapes in (DEEPLAB_RESIZES_640, REALTIME_RESIZE_SHAPES):
+        held |= {(shape, size) for shape, size in shapes}
+    for what, config, schedule_path, resizes in REALTIME_CASES:
+        t0 = time.perf_counter()
+        model = init_model(config, device=device)
+        if attention_layers(model) != 0:
+            raise AssertionError(f"{what}: {attention_layers(model)} "
+                                 f"attention layers")
+        randomize_(model, seed=0)
+        row = {}
+        for amp in (False, True):
+            name = what + (" amp" if amp else "")
+            x_nchw, served = serve(model, amp, REALTIME_BATCH,
+                                   REALTIME_IMAGE_SIZE, 0, name)
+            print(f"{name} slice: " + json.dumps(served), flush=True)
+            with policy_scope("bf16" if amp else "fp32"):
+                print_breakdown(name, lambda: model.inference(x_nchw))
+            row["serve_amp" if amp else "serve"] = served["launches"]
+        if what.startswith("segnext"):
+            with torch.no_grad():
+                same = torch.equal(model.inference(x_nchw),
+                                   model.inference(x_nchw))
+            if not same:
+                raise AssertionError("two serving calls of SegNeXt gave "
+                                     "other bits")
+        cpu_agreement_phase(model, x_nchw, 320, 320, what)
+        n_val = load_python_config(schedule_path)["val_batch_size"]
+        _, x, masks = synthetic_batch(device, 2 * n_val, REALTIME_IMAGE_SIZE)
+        gt = torch.from_numpy(masks).to(device)
+        row["validate"] = validate_batches(
+            TrainState(model, None), [(x[i:i + n_val], gt[i:i + n_val], {})
+                                      for i in (0, n_val)],
+            "fp32", what=f"{what} validate")
+        del x, gt, x_nchw
+        seen = []
+        with realtime_step_probes(seen):
+            row["train"] = deterministic_amp_steps(
+                device, model, schedule_path, 0, resizes, what,
+                breakdown=True)
+        probes = {kind: [s for s in seen if s[0] == kind]
+                  for kind in ("ohem", "nmf", "resize")}
+        used = {((g[0], g[1], *in_size), g[2:])
+                for _, _, (g, in_size, _) in probes["resize"]}
+        unheld = sorted(used - held) + sorted(
+            {d for *_, (_, _, d) in probes["resize"]} - {"bfloat16"})
+        off_card = [s for s in seen if s[1] != "cuda"]
+        wants = dict(ohem=not what.startswith("segnext"),
+                     nmf=what.startswith("segnext"))
+        if off_card or unheld or any(bool(probes[k]) != v
+                                     for k, v in wants.items()):
+            raise AssertionError(f"{what} steps: off the card {off_card[:3]}"
+                                 f", resize shapes phase 8b never held "
+                                 f"{unheld}, OHEM {len(probes['ohem'])} and "
+                                 f"NMF {len(probes['nmf'])} calls")
+        row["probes"] = dict(ohem_calls=len(probes["ohem"]),
+                             ohem_pixels=sorted({s[2]
+                                                 for s in probes["ohem"]}),
+                             nmf_calls=len(probes["nmf"]),
+                             resize_shapes=sorted(
+                                 {s[2] for s in probes["resize"]}))
+        print(f"{what} step probes: " + json.dumps(row["probes"]),
+              flush=True)
+        out[what] = row
+        del model
+        torch.cuda.empty_cache()
+        print(f"{what}: {time.perf_counter() - t0:.1f} s", flush=True)
+    pixels = load_python_config(SCHEDULE)["train_batch_size"] * AUG_SIZE ** 2
+    cost = sort_cost(device, pixels)
+    print("ohem sort: " + json.dumps(cost), flush=True)
+    t0 = time.perf_counter()
+    _, config, _, resizes = realtime_case(REALTIME_AGREE)
+    model, x, gt = agreement_inputs(config, REALTIME_AGREE_BATCH,
+                                    REALTIME_AGREE_SIZE)
+    record = RealtimeChoices()
+    train_agreement(device, f"{REALTIME_AGREE} train step", model, x, gt,
+                    (record.replaying(),),
+                    {k: per_step_launches(k, False, 0, resizes)
+                     for k in step_counts()},
+                    run_own=False, card_context=record.recording)
+    if set(record.devices) != {"cuda"} or not record.confident:
+        raise AssertionError(f"{REALTIME_AGREE} agreement step: OHEM on "
+                             f"{set(record.devices)}, "
+                             f"{len(record.confident)} boundary masks")
+    print(f"{REALTIME_AGREE} agreement choices: " + json.dumps(dict(
+        kept_sets=[int(k.sum()) for k in record.kept],
+        confident_pixels=[int(c.sum()) for c in record.confident],
+        seconds=time.perf_counter() - t0)), flush=True)
+    out["sort"] = cost
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing measured")
@@ -4080,6 +4424,8 @@ def main():
                  device)
     decoders = clock("22 vit decoders", decoder_phase, device)
     decoder_cli = decoders.pop("cli")
+    realtime = clock("23 realtime", realtime_phase, device)
+    realtime_sort = realtime.pop("sort")
     clock.report()
     # the flagship's evaluation paths: validation in float32 and under amp
     # (on ready batches and through the val pipeline), TTA in float32; the
@@ -4090,12 +4436,15 @@ def main():
                   segformer["train_amp"]["validate"],
                   *(p["validate"] for p in pyramid.values()),
                   *(p["validate"] for p in backbones.values()),
-                  *(p["validate"] for p in decoders.values()))
+                  *(p["validate"] for p in decoders.values()),
+                  *(p["validate"] for p in realtime.values()))
     # the new paths' serving (the evaluator) and the SegFormer and BEiT CLIs
     new_serving = (segformer["serve"], segformer["serve_amp"],
                    *(p["serve"] for p in pyramid.values()),
                    *(p["serve"] for p in backbones.values()),
                    *(p[k] for p in decoders.values()
+                     for k in ("serve", "serve_amp")),
+                   *(p[k] for p in realtime.values()
                      for k in ("serve", "serve_amp")))
     segformer_cli = (segformer["cli"]["train"], segformer["cli"]["val"],
                      backbone_cli["train"], backbone_cli["val"],
@@ -4208,6 +4557,22 @@ def main():
     if not mask_k1 or not all(mask_resize.values()):
         raise AssertionError(f"a kernel of phase 21's paths never launched: "
                              f"K1 {mask_k1}, resize backward {mask_resize}")
+    # phase 23's paths: K1 in serving and validation, the bf16 resize
+    # backward in every amp step
+    realtime_k1 = sum(p[k]["confusion"] for p in realtime.values()
+                      for k in ("serve", "serve_amp")) + sum(
+        p["validate"]["logits"] for p in realtime.values())
+    realtime_resize = sum(p["train"]["resize_backward_bf16"]
+                          for p in realtime.values())
+    realtime_flash = sum(p["train"][k] for p in realtime.values()
+                         for k in FLASH_KEYS[True])
+    print("realtime launches: " + json.dumps(dict(
+        k1=realtime_k1, resize_backward_bf16=realtime_resize,
+        flash=realtime_flash, ohem_sort=realtime_sort)), flush=True)
+    if not realtime_k1 or not realtime_resize or realtime_flash:
+        raise AssertionError(f"phase 23's paths: K1 {realtime_k1}, resize "
+                             f"backward {realtime_resize}, or a flash "
+                             f"kernel launched")
     print("upernet backbones launches: " + json.dumps(dict(
         k1=backbone_k1, resize_backward_bf16=backbone_resize)), flush=True)
     if not backbone_k1 or not backbone_resize:
@@ -4228,7 +4593,8 @@ def main():
                         if [r["shape"], r["size"]] in
                         [[list(a), list(b)] for a, b, *_ in
                          (*SEGFORMER_RESIZE_SHAPES, *PSPNET_RESIZE_SHAPES,
-                          *PYRAMID_RESIZE_SHAPES, *DECODER_RESIZE_SHAPES)]]
+                          *PYRAMID_RESIZE_SHAPES, *DECODER_RESIZE_SHAPES,
+                          *REALTIME_RESIZE_SHAPES)]]
 
     source = ("image_segmentation_lab_tpu_torch/csrc/"
               "flash_attention_bwd_sm90.cu")
@@ -4300,6 +4666,9 @@ def main():
                         (launches, setr_launches_k1, amp_launches_k1,
                          *eval_paths, cli)) + new_k1 + mask_k1,
         "cli_launches": {"logits": cli["logits"], "labels": cli["labels"]},
+        # phase 23's serving and validation (in "launches" through the
+        # evaluation and serving paths)
+        "realtime_launches": realtime_k1,
         "max_abs_err": max(max(r["max_abs_err"], r["labels_max_abs_err"])
                            for r in rows),
         "ms": flagship["ms"],
@@ -4416,7 +4785,9 @@ def main():
                         (train_launches, amp_train_launches)
                         for k in RESIZE_KEY.values())
                     + new["resize_backward"] + new["resize_backward_bf16"]
-                    + sum(mask_resize.values()),
+                    + sum(mask_resize.values()) + realtime_resize,
+        # phase 23's amp steps' share of them
+        "realtime_launches": realtime_resize,
         "max_abs_err": 0.0,  # phase 8b raises unless it gives plain's bits
         "ms": resize_row["ms"],
         "device_ms": resize_row["device_ms"],

@@ -130,8 +130,21 @@ class Bottleneck(_Block):
         return self._residual(x, self.bn3(self.conv3(out)))
 
 
+class NormEval:
+    """``train()`` keeps every batch norm on its running statistics when
+    the backbone's ``norm_eval`` is set."""
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if mode and self.norm_eval:
+            for m in self.modules():
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    m.eval()
+        return self
+
+
 @BACKBONE.register()
-class ResNet(nn.Module):
+class ResNet(NormEval, nn.Module):
     """ResNet backbone returning the stage features selected by
     ``out_indices``; see the module docstring."""
 
@@ -236,14 +249,6 @@ class ResNet(nn.Module):
                 outs.append(x)
         return tuple(outs)
 
-    def train(self, mode: bool = True):
-        """``norm_eval`` keeps the batch norms on running statistics."""
-        super().train(mode)
-        if mode and self.norm_eval:
-            for m in self.modules():
-                if isinstance(m, nn.modules.batchnorm._BatchNorm):
-                    m.eval()
-        return self
 
 
 @BACKBONE.register()

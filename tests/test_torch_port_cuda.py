@@ -465,6 +465,18 @@ RESIZE_CASES = {
     # and a 1-pixel input read by a 256² plane
     "parts_8x_wide": ((1, 4, 64, 256), (512, 2048), False),
     "parts_pool_256": ((2, 64, 1, 1), (256, 256), False),
+    # SegNeXt's, PIDNet-S's and DDRNet's train steps at 16 x 640²:
+    # LightHamHead's levels to 80², the PagFM gates and diff taps from
+    # 40² and 20², the pyramid pools (5², 3², 2², 1²) to the 1/64 map, the
+    # context to 80² and the one-channel boundary logits to 640²
+    "ham_level_40": ((16, 160, 40, 40), (80, 80), False),
+    "ham_level_20": ((16, 256, 20, 20), (80, 80), False),
+    **{f"pid_tap_{c}_{s}": ((16, c, s, s), (80, 80), False)
+       for c in (32, 64) for s in (40, 20)},
+    **{f"pyramid_{c}_{s}": ((16, c, s, s), (10, 10), False)
+       for c in (96, 128) for s in (5, 3, 2, 1)},
+    "context_8x": ((16, 128, 10, 10), (80, 80), False),
+    "boundary_logits": ((16, 1, 80, 80), (640, 640), False),
 }
 
 
@@ -1079,3 +1091,50 @@ def test_pool_and_nearest_backward_repeat_under_deterministic_algorithms(
     assert torch.equal(first, second)
     torch.testing.assert_close(first.cpu(), grad("cpu"), rtol=1e-5,
                                atol=1e-6)
+
+
+def test_ohem_and_boundary_map_on_the_card_equal_the_cpu(cuda):
+    """PIDNet's and DDRNet's discrete choices on the card, under
+    ``torch.use_deterministic_algorithms(True)`` (``torch.sort`` runs
+    there; ``torch.kthvalue`` has no deterministic CUDA implementation):
+    OHEM's kept set from the same probabilities in both regimes, and the
+    boundary map of the same labels, equal to the CPU's."""
+    from image_segmentation_lab_tpu_torch.models.decode_heads.pid_head \
+        import boundary_from_label
+    from image_segmentation_lab_tpu_torch.models.losses.ohem_cross_entropy \
+        import ohem_kept
+    gen = torch.Generator().manual_seed(case_seed("ohem"))
+    p = torch.rand(4 * 160 * 160, generator=gen)
+    valid = torch.rand(p.shape, generator=gen) >= 0.1
+    p = torch.where(valid, p, torch.full((), float("inf")))
+    labels = torch.randint(0, 3, (4, 20, 20), generator=gen)
+    labels = labels.repeat_interleave(8, 1).repeat_interleave(8, 2)
+    labels[torch.rand(labels.shape, generator=gen) < 0.05] = 255
+    torch.use_deterministic_algorithms(True)
+    try:
+        for min_kept in (10_000, 200_000):
+            got = ohem_kept(p.to(cuda), valid.to(cuda), min_kept, 0.7)
+            assert torch.equal(got.cpu(), ohem_kept(p, valid, min_kept, 0.7))
+        edges = boundary_from_label(labels.to(cuda), 4, 255)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(edges.cpu(), boundary_from_label(labels, 4, 255))
+    assert 0 < float(edges.mean()) < 1
+
+
+def test_nmf_on_the_card_repeats_and_stays_float32_under_autocast(cuda):
+    """SegNeXt's NMF at eval: the same bits on a second call (bases from a
+    generator seeded with 0 on the card), and under the bf16 autocast its
+    float32 result rounded once."""
+    from image_segmentation_lab_tpu_torch.models.decode_heads.ham_head \
+        import NMF2D
+    nmf = NMF2D(dict(MD_S=1, MD_R=16, TRAIN_STEPS=6, EVAL_STEPS=7,
+                     INV_T=100, RAND_INIT=True)).eval()
+    gen = torch.Generator().manual_seed(case_seed("nmf"))
+    x = torch.rand(16, 256, 80, 80, generator=gen).to(cuda)
+    first = nmf(x)
+    assert torch.equal(first, nmf(x))
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = nmf(x.bfloat16())
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, nmf(x.bfloat16().float()).bfloat16())

@@ -32,7 +32,11 @@ new = ("models.backbones.mit", "models.decode_heads.segformer_head",
        "models.decode_heads.dpt_head",
        "models.decode_heads.segmenter_mask_head",
        "models.decode_heads.fpn_head", "models.backbones.twins",
-       "models.backbones.poolformer")
+       "models.backbones.poolformer", "models.backbones.ddrnet",
+       "models.backbones.pidnet", "models.backbones.mscan",
+       "models.decode_heads.ddr_head", "models.decode_heads.pid_head",
+       "models.decode_heads.ham_head", "models.losses.ohem_cross_entropy",
+       "models.losses.boundary_loss")
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 forbidden = ("jax", "flax", "optax", "orbax", "image_segmentation_lab_tpu",
