@@ -93,8 +93,8 @@ printing its own lines; any failure raises and the exit code is not 0:
    beside it ``F.interpolate``'s own backward
    (``aten::upsample_bilinear2d_backward``) as a yardstick, and each row's
    device time over the library's and its bound over its device time
-   (yardsticks timed at phase 23's rows and RESIZE_HEADLINES; at the
-   others they stand in PERF.md's kernel table);
+   (yardsticks timed at phase 23's and 24's rows and RESIZE_HEADLINES; at
+   the others they stand in PERF.md's kernel table);
 9. SETR train slice: full-width SETR-PUP ViT-S/16 through ``init_model``,
    ``create_train_state`` and ``make_train_step`` (SGD and StepLR of the
    kvasir schedule, drop path 0.1 from a CUDA generator) for 10 steps on
@@ -299,8 +299,18 @@ printing its own lines; any failure raises and the exit code is not 0:
    (REALTIME_RESIZE_SHAPES); ``torch.sort``'s ms at the step's 6.55 M
    pixels; one float32 step of PIDNet-S at 2 x 256² against float64 on
    the CPU on the card's ReLU branches, OHEM kept sets and boundary
-   masks (``RealtimeChoices``).  The wall seconds of each phase are
-   printed at the end (``phase seconds``).
+   masks (``RealtimeChoices``);
+24. the non-local head family and DeepLabV3+ on the flagship's
+   ResNetV1c-50-d8 (NONLOCAL_CASES: DeepLabV3+'s separable ASPP, NL,
+   DNL, GC, CC, DA, ANN, ISA, EMA and PSA heads with the FCN aux head), one
+   seeded backbone shared by the ten: each served whole at 16 x 640² in
+   float32 and under amp (one timed batch each, a breakdown each), one
+   320² window held against the port on the CPU, one validation batch of
+   8 (2 K1 launches, counts = argmax + bincount), two deterministic amp
+   steps at the kvasir schedule's 16 x 640² with each step's bf16
+   resize-backward launches and a profiled third, every resize shape one
+   that phase 8b holds.  The wall seconds of each phase are printed at
+   the end (``phase seconds``).
 
 Kernel times: the wrapper's median of 20 calls by CUDA events and the
 kernel's own device time from ``torch.profiler`` (for SDPA's forward, of
@@ -350,6 +360,7 @@ from image_segmentation_lab_tpu_torch.core.builder import (LR_SCHEDULER,
                                                           build_from_cfg)
 from image_segmentation_lab_tpu_torch.core.evaluation import SegEvaluator
 from image_segmentation_lab_tpu_torch.core.fileio import load_python_config
+from image_segmentation_lab_tpu_torch.core.initialize import init_weights
 from image_segmentation_lab_tpu_torch.core.initialize.checkpoint import (
     load_file, save_checkpoint)
 from image_segmentation_lab_tpu_torch.core.inference import (inference_model,
@@ -364,9 +375,10 @@ from image_segmentation_lab_tpu_torch.models.backbones.poolformer import \
 from image_segmentation_lab_tpu_torch.models.basic import LayerNorm
 from image_segmentation_lab_tpu_torch.models.backbones.mscan import \
     MSCABlock
+from image_segmentation_lab_tpu_torch.models.builder import build_segmentor
 from image_segmentation_lab_tpu_torch.models.decode_heads import (
-    Mask2FormerHead, MaskFormerHead, SegmenterMaskTransformerHead, ham_head,
-    pid_head)
+    CAM, PAM, CrissCrossAttention, Mask2FormerHead, MaskFormerHead,
+    SegmenterMaskTransformerHead, ham_head, pid_head)
 from image_segmentation_lab_tpu_torch.models.losses import \
     ohem_cross_entropy
 from image_segmentation_lab_tpu_torch.ops import (confusion, flash_attention,
@@ -772,6 +784,30 @@ REALTIME_RESIZE_SHAPES = [
     *(((16, c, s, s), (80, 80)) for c in (32, 64) for s in (40, 20)),
     *(((16, c, s, s), (10, 10)) for c in (96, 128) for s in (5, 3, 2, 1)),
     ((16, 128, 10, 10), (80, 80)), ((16, 1, 80, 80), (640, 640))]
+# phase 24, the non-local head family and DeepLabV3+ on ResNetV1c-50-d8:
+# per config its bilinear resizes under grad in an amp step at 16 x 640²:
+# the decode and aux logits 80² -> 640² (DA's three decode logits, each
+# with its loss), DeepLabV3+'s image pool 1² -> 80², ASPP output 80² ->
+# 160² (c1's size) and logits 160² -> 640², PSA's two shrinks 80² -> 40²
+# and its projection 40² -> 80²
+NONLOCAL_CASES = [  # name, config, resizes a step
+    (Path(config).name[:-3], ROOT / "configs/network" / config, resizes)
+    for config, resizes in (("deeplabv3/deeplabv3plus_r50-d8.py", 4),
+                            ("nonlocal_net/nonlocal_r50-d8.py", 2),
+                            ("dnlnet/dnl_r50-d8.py", 2),
+                            ("gcnet/gcnet_r50-d8.py", 2),
+                            ("ccnet/ccnet_r50-d8.py", 2),
+                            ("danet/danet_r50-d8.py", 4),
+                            ("ann/ann_r50-d8.py", 2),
+                            ("isanet/isanet_r50-d8.py", 2),
+                            ("emanet/emanet_r50-d8.py", 2),
+                            ("psanet/psanet_r50-d8.py", 5))]
+NONLOCAL_BATCH, NONLOCAL_IMAGE_SIZE = 16, 640
+NONLOCAL_AGREE_SIZE = 320
+# those resizes in bf16 that no earlier phase holds
+NONLOCAL_RESIZE_SHAPES = [((16, 512, 80, 80), (160, 160)),
+                          ((16, 512, 80, 80), (40, 40)),
+                          ((16, 2048, 40, 40), (80, 80))]
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
@@ -1230,10 +1266,18 @@ def normalize_constants():
     return vec("mean"), vec("std"), scale
 
 
+@functools.lru_cache(maxsize=None)
+def synthetic_item(idx, size):
+    """``make_synthetic_item(idx, (size, size))``, drawn once a run: drawn
+    anew for every batch (about 60 ms an item at 640² on the host), the
+    items took up to a third of a phase's wall time."""
+    return make_synthetic_item(idx, (size, size))
+
+
 def synthetic_batch(device, batch, size):
     """Normalised NHWC images (the ``inference_model`` input), the same as
     NCHW, and the int32 masks."""
-    items = [make_synthetic_item(i, (size, size)) for i in range(batch)]
+    items = [synthetic_item(i, size) for i in range(batch)]
     images = np.stack([im for im, _ in items])
     masks = np.stack([m for _, m in items]).astype(np.int32)
     mean, std, scale = normalize_constants()
@@ -1252,9 +1296,11 @@ def randomize_(model, seed):
     order one.  PoolFormer's layer scales (1e-5 at init, which would leave
     every block near the identity) are drawn in [0.5, 1], Segmenter's raw
     patch and class projections at unit gain, MSCAN's layer scales (1e-2
-    at init) in [0.1, 0.3], and the classifiers of PIDNet's and DDRNet's
+    at init) in [0.1, 0.3], the classifiers of PIDNet's and DDRNet's
     segmentheads at unit gain (at std 0.01 no boundary logit would reach
-    the 0.8 gate)."""
+    the 0.8 gate), and the scalar ``gamma`` of CCNet's and DANet's
+    attention (0 at init, which would leave the attention out of the
+    output) in [0.5, 1]."""
     gen = torch.Generator().manual_seed(seed)
 
     def fill(t, lo, hi):
@@ -1288,6 +1334,8 @@ def randomize_(model, seed):
                 fill(m.layer_scale_2, 0.1, 0.3)
             elif isinstance(m, pid_head._BasePIDHead):
                 unit_gain(m.cls.weight)
+            elif isinstance(m, (CrissCrossAttention, PAM, CAM)):
+                fill(m.gamma, 0.5, 1.0)
         for head in (model.decode_head, model.auxiliary_head):
             if getattr(head, "conv_seg", None) is not None:
                 unit_gain(head.conv_seg.weight)
@@ -1424,12 +1472,13 @@ def print_breakdown(what, fn):
         top_kernels=[[name[:90], ms] for name, ms in top])), flush=True)
 
 
-def serve(model, amp, batch, size, layers, what, out_dtype=None):
-    """Serving under the float32 or (``amp``) the bf16 policy: 8 forwards
-    of ``batch`` synthetic ``size``² images through ``inference_model``,
-    ``model.inference`` and ``SegEvaluator``, with exactly ``layers``
-    launches per forward of the policy's flash forward kernel (and as many
-    splits in float32) and none of the other one; the probabilities in
+def serve(model, amp, batch, size, layers, what, out_dtype=None, runs=5):
+    """Serving under the float32 or (``amp``) the bf16 policy: ``runs`` + 3
+    forwards of ``batch`` synthetic ``size``² images through
+    ``inference_model``, ``model.inference`` and ``SegEvaluator``, with
+    exactly ``layers`` launches per forward of the policy's flash forward
+    kernel (and as many splits in float32) and none of the other one; the
+    probabilities in
     ``out_dtype`` (by default the policy's).  The batch, the latency, the
     launches, the peak memory and the metrics."""
     x, x_nchw, masks = synthetic_batch(next(model.parameters()).device,
@@ -1449,7 +1498,7 @@ def serve(model, amp, batch, size, layers, what, out_dtype=None):
     torch.cuda.reset_peak_memory_stats(device)
     with torch.no_grad(), policy_scope("bf16" if amp else "fp32"):
         check_class_map(serve(), shape, f"{what} whole, {dtype}")
-        latency = timed_batches(serve)
+        latency = timed_batches(serve, runs)
         forwards += 1
         probs = model.inference(x_nchw)
         if probs.dtype != dtype or not bool(torch.isfinite(probs).all()):
@@ -1749,7 +1798,8 @@ def resize_backward_phase(device, l2_flush):
     # kernels line; the others keep every check and the kernel's own
     # times, while their plain and library times stand in PERF.md's kernel
     # table
-    timed_in_full = {*RESIZE_HEADLINES, *REALTIME_RESIZE_SHAPES}
+    timed_in_full = {*RESIZE_HEADLINES, *REALTIME_RESIZE_SHAPES,
+                     *NONLOCAL_RESIZE_SHAPES}
     both = dict.fromkeys((*SETR_RESIZES, *DEEPLAB_RESIZES,
                           *DEEPLAB_RESIZES_640, *SEGFORMER_RESIZE_SHAPES,
                           *PSPNET_RESIZE_SHAPES, *M2F_RESIZE_SHAPES))
@@ -1761,7 +1811,8 @@ def resize_backward_phase(device, l2_flush):
              + [(shape, size, None, f32_bf16, True)
                 for shape, size in ALIGN_CORNERS_RESIZES]
              + [(shape, size, None, (torch.bfloat16,), False)
-                for shape, size in REALTIME_RESIZE_SHAPES])
+                for shape, size in (*REALTIME_RESIZE_SHAPES,
+                                    *NONLOCAL_RESIZE_SHAPES)])
     for (n, c, h, w), size, scales, dtypes, ac in cases:
         restated = ((n, c, h, w), size) not in timed_in_full
         for dtype in dtypes:
@@ -4231,9 +4282,7 @@ def realtime_phase(device):
     step of PIDNet-S at 2 x 256² against float64 on the CPU on the card's
     ReLU branches, OHEM kept sets and boundary masks.  The launches of
     each path, per model."""
-    out, held = {}, set()
-    for shapes in (DEEPLAB_RESIZES_640, REALTIME_RESIZE_SHAPES):
-        held |= {(shape, size) for shape, size in shapes}
+    out, held = {}, held_resize_shapes()
     for what, config, schedule_path, resizes in REALTIME_CASES:
         t0 = time.perf_counter()
         model = init_model(config, device=device)
@@ -4320,6 +4369,113 @@ def realtime_phase(device):
         confident_pixels=[int(c.sum()) for c in record.confident],
         seconds=time.perf_counter() - t0)), flush=True)
     out["sort"] = cost
+    return out
+
+
+def held_resize_shapes():
+    """The ((N, C, h, w), (H, W)) pairs phase 8b holds in bf16 at
+    ``align_corners`` False without a user scale."""
+    held = set()
+    for shapes in (SETR_RESIZES, DEEPLAB_RESIZES, DEEPLAB_RESIZES_640,
+                   SEGFORMER_RESIZE_SHAPES, PSPNET_RESIZE_SHAPES,
+                   M2F_RESIZE_SHAPES, PYRAMID_RESIZE_SHAPES,
+                   REALTIME_RESIZE_SHAPES, NONLOCAL_RESIZE_SHAPES):
+        held |= {(shape, size) for shape, size in shapes}
+    held |= {(shape, size) for shape, size, scales, dtypes in
+             DECODER_RESIZE_SHAPES
+             if scales is None and torch.bfloat16 in dtypes}
+    return held
+
+
+def backbone_spec(network):
+    """What makes two configs' ResNets the same network."""
+    return {k: network["backbone"].get(k) for k in (
+        "type", "depth", "num_stages", "out_indices", "dilations", "strides",
+        "contract_dilation", "stem_channels", "base_channels")}
+
+
+def shared_backbone_model(config, backbone, seeded, device):
+    """``config``'s segmentor around the shared ``backbone`` (its own
+    heads built on the meta device, initialised on the CPU as
+    ``init_model`` does, then moved to ``device``), the backbone reset to
+    its ``seeded`` state, the whole then ``randomize_``-d (which redraws
+    the backbone's norms as they were seeded)."""
+    network = load_python_config(config)["model"]
+    if backbone_spec(network) != backbone_spec(
+            load_python_config(CONFIG)["model"]):
+        raise AssertionError(f"{config}: another backbone than {CONFIG}'s")
+    with torch.device("meta"):
+        model = build_segmentor(network)
+    for name in ("decode_head", "auxiliary_head"):
+        head = getattr(model, name).to_empty(device="cpu")
+        init_weights(head, torch.Generator().manual_seed(0))
+    model.backbone = backbone
+    backbone.load_state_dict(seeded)
+    model.to(device).eval()
+    randomize_(model, seed=0)
+    return model
+
+
+def nonlocal_phase(device):
+    """Phase 24, the non-local head family and DeepLabV3+ on the
+    flagship's ResNetV1c-50-d8 (NONLOCAL_CASES), one seeded backbone
+    shared by the ten: each served whole at NONLOCAL_BATCH x
+    NONLOCAL_IMAGE_SIZE² in float32 and under amp (one timed batch after
+    the warm-up, no flash launch, a breakdown each), one
+    NONLOCAL_AGREE_SIZE² window held against the port on the CPU, one
+    validation batch of the kvasir schedule's ``val_batch_size`` (K1 on
+    both heads), two deterministic amp steps at its train batch of
+    AUG_SIZE² with each step's bf16 resize-backward launches and a
+    profiled third, every resize backward on the card, in bf16, at a shape
+    phase 8b holds.  The launches of each path, per model."""
+    held, out = held_resize_shapes(), {}
+    backbone_model = init_model(CONFIG, device=device)
+    randomize_(backbone_model, seed=0)
+    backbone = backbone_model.backbone
+    seeded = {k: v.clone() for k, v in backbone.state_dict().items()}
+    del backbone_model
+    n_val = load_python_config(SCHEDULE)["val_batch_size"]
+    for what, config, resizes in NONLOCAL_CASES:
+        t0 = time.perf_counter()
+        model = shared_backbone_model(config, backbone, seeded, device)
+        if model.auxiliary_head is None:
+            raise AssertionError(f"{what}: the aux head is missing")
+        row = {}
+        for amp in (False, True):
+            name = what + (" amp" if amp else "")
+            x_nchw, served = serve(model, amp, NONLOCAL_BATCH,
+                                   NONLOCAL_IMAGE_SIZE, 0, name, runs=1)
+            print(f"{name} slice: " + json.dumps(served), flush=True)
+            with policy_scope("bf16" if amp else "fp32"):
+                print_breakdown(name, lambda: model.inference(x_nchw))
+            row["serve_amp" if amp else "serve"] = served["launches"]
+        cpu_agreement_phase(model, x_nchw, NONLOCAL_AGREE_SIZE,
+                            NONLOCAL_AGREE_SIZE, what)
+        _, x, masks = synthetic_batch(device, n_val, NONLOCAL_IMAGE_SIZE)
+        row["validate"] = validate_batches(
+            TrainState(model, None),
+            [(x, torch.from_numpy(masks).to(device), {})], "fp32",
+            what=f"{what} validate")
+        del x, x_nchw
+        seen = []
+        with realtime_step_probes(seen):
+            row["train"] = deterministic_amp_steps(
+                device, model, SCHEDULE, 0, resizes, what, breakdown=True)
+        probes = [s for s in seen if s[0] == "resize"]
+        unheld = sorted({((g[0], g[1], *in_size), tuple(g[2:]))
+                         for _, _, (g, in_size, _) in probes} - held)
+        off = [s for s in probes if s[1] != "cuda" or s[2][2] != "bfloat16"]
+        if unheld or off or not probes:
+            raise AssertionError(f"{what} steps: resize shapes phase 8b "
+                                 f"never held {unheld}, off the card or not "
+                                 f"bf16 {off[:3]}, {len(probes)} resizes")
+        row["resize_shapes"] = sorted({s[2] for s in probes})
+        print(f"{what} step resizes: " + json.dumps(row["resize_shapes"]),
+              flush=True)
+        out[what] = row
+        del model
+        torch.cuda.empty_cache()
+        print(f"{what}: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -4426,6 +4582,7 @@ def main():
     decoder_cli = decoders.pop("cli")
     realtime = clock("23 realtime", realtime_phase, device)
     realtime_sort = realtime.pop("sort")
+    nonlocal_paths = clock("24 non-local heads", nonlocal_phase, device)
     clock.report()
     # the flagship's evaluation paths: validation in float32 and under amp
     # (on ready batches and through the val pipeline), TTA in float32; the
@@ -4437,7 +4594,8 @@ def main():
                   *(p["validate"] for p in pyramid.values()),
                   *(p["validate"] for p in backbones.values()),
                   *(p["validate"] for p in decoders.values()),
-                  *(p["validate"] for p in realtime.values()))
+                  *(p["validate"] for p in realtime.values()),
+                  *(p["validate"] for p in nonlocal_paths.values()))
     # the new paths' serving (the evaluator) and the SegFormer and BEiT CLIs
     new_serving = (segformer["serve"], segformer["serve_amp"],
                    *(p["serve"] for p in pyramid.values()),
@@ -4445,6 +4603,8 @@ def main():
                    *(p[k] for p in decoders.values()
                      for k in ("serve", "serve_amp")),
                    *(p[k] for p in realtime.values()
+                     for k in ("serve", "serve_amp")),
+                   *(p[k] for p in nonlocal_paths.values()
                      for k in ("serve", "serve_amp")))
     segformer_cli = (segformer["cli"]["train"], segformer["cli"]["val"],
                      backbone_cli["train"], backbone_cli["val"],
@@ -4573,6 +4733,24 @@ def main():
         raise AssertionError(f"phase 23's paths: K1 {realtime_k1}, resize "
                              f"backward {realtime_resize}, or a flash "
                              f"kernel launched")
+    # phase 24's paths: K1 in serving and validation, the bf16 resize
+    # backward in every amp step, no flash kernel
+    nonlocal_k1 = sum(p[k]["confusion"] for p in nonlocal_paths.values()
+                      for k in ("serve", "serve_amp")) + sum(
+        p["validate"]["logits"] for p in nonlocal_paths.values())
+    nonlocal_resize = sum(p["train"]["resize_backward_bf16"]
+                          for p in nonlocal_paths.values())
+    nonlocal_flash = sum(p["train"][k] for p in nonlocal_paths.values()
+                         for k in FLASH_KEYS[True]) + sum(
+        p[k]["flash"] for p in nonlocal_paths.values()
+        for k in ("serve", "serve_amp"))
+    print("non-local heads launches: " + json.dumps(dict(
+        k1=nonlocal_k1, resize_backward_bf16=nonlocal_resize,
+        flash=nonlocal_flash)), flush=True)
+    if not nonlocal_k1 or not nonlocal_resize or nonlocal_flash:
+        raise AssertionError(f"phase 24's paths: K1 {nonlocal_k1}, resize "
+                             f"backward {nonlocal_resize}, or a flash "
+                             f"kernel launched")
     print("upernet backbones launches: " + json.dumps(dict(
         k1=backbone_k1, resize_backward_bf16=backbone_resize)), flush=True)
     if not backbone_k1 or not backbone_resize:
@@ -4594,7 +4772,8 @@ def main():
                         [[list(a), list(b)] for a, b, *_ in
                          (*SEGFORMER_RESIZE_SHAPES, *PSPNET_RESIZE_SHAPES,
                           *PYRAMID_RESIZE_SHAPES, *DECODER_RESIZE_SHAPES,
-                          *REALTIME_RESIZE_SHAPES)]]
+                          *REALTIME_RESIZE_SHAPES,
+                          *NONLOCAL_RESIZE_SHAPES)]]
 
     source = ("image_segmentation_lab_tpu_torch/csrc/"
               "flash_attention_bwd_sm90.cu")
@@ -4666,9 +4845,10 @@ def main():
                         (launches, setr_launches_k1, amp_launches_k1,
                          *eval_paths, cli)) + new_k1 + mask_k1,
         "cli_launches": {"logits": cli["logits"], "labels": cli["labels"]},
-        # phase 23's serving and validation (in "launches" through the
-        # evaluation and serving paths)
+        # phase 23's and 24's serving and validation (in "launches"
+        # through the evaluation and serving paths)
         "realtime_launches": realtime_k1,
+        "nonlocal_launches": nonlocal_k1,
         "max_abs_err": max(max(r["max_abs_err"], r["labels_max_abs_err"])
                            for r in rows),
         "ms": flagship["ms"],
@@ -4785,9 +4965,11 @@ def main():
                         (train_launches, amp_train_launches)
                         for k in RESIZE_KEY.values())
                     + new["resize_backward"] + new["resize_backward_bf16"]
-                    + sum(mask_resize.values()) + realtime_resize,
-        # phase 23's amp steps' share of them
+                    + sum(mask_resize.values()) + realtime_resize
+                    + nonlocal_resize,
+        # phase 23's and 24's amp steps' shares of them
         "realtime_launches": realtime_resize,
+        "nonlocal_launches": nonlocal_resize,
         "max_abs_err": 0.0,  # phase 8b raises unless it gives plain's bits
         "ms": resize_row["ms"],
         "device_ms": resize_row["device_ms"],

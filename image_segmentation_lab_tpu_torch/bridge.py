@@ -19,8 +19,9 @@ either way round):
 * everything else (biases, norm affines and statistics, GroupNorm's too,
   the ViTs' ``cls_token`` and ``pos_embed``, relative-position tables,
   BEiT's ``q_bias``/``v_bias``, layer-scale ``gamma`` vectors, the mask
-  heads' ``query_embed``, ``query_feat`` and ``level_embed`` tables):
-  unchanged.
+  heads' ``query_embed``, ``query_feat`` and ``level_embed`` tables, the
+  scalar ``gamma`` of CCNet's and DANet's attention, EMANet's ``bases``):
+  unchanged, a 0-d array staying 0-d.
 
 The load is strict: every JAX leaf must be used and every port parameter
 and buffer filled (``num_batches_tracked`` has no JAX counterpart and is
@@ -85,7 +86,7 @@ def jax_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
         arr = tensor.detach().cpu().numpy()
         if name in layout:
             arr = layout[name](arr)
-        out[jax_name(name)] = np.ascontiguousarray(arr)
+        out[jax_name(name)] = np.asarray(arr, order="C")
     return out
 
 
@@ -128,4 +129,4 @@ def load_jax_state_dict(model: nn.Module,
     targets = model.state_dict()
     with torch.no_grad():
         for name, arr in mapped_state_dict(model, state_dict).items():
-            targets[name].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            targets[name].copy_(torch.from_numpy(np.asarray(arr, order="C")))

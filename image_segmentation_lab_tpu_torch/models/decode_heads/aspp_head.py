@@ -3,7 +3,8 @@
 One ConvModule per dilation (1x1 for dilation 1, else 3x3 with padding equal
 to the dilation), an image-pool branch (global average pool, 1x1 ConvModule,
 upsampled back), and a 3x3 bottleneck over the concatenation
-``[pool, branches...]``.
+``[pool, branches...]``.  ``_build_aspp_module`` builds the branches: the
+hook through which ``DepthwiseSeparableASPPHead`` makes them separable.
 """
 
 from __future__ import annotations
@@ -22,16 +23,21 @@ from .decode_head import BaseDecodeHead
 
 class ASPPModule(nn.Module):
     """Atrous conv branches, held in ``branches`` (JAX path
-    ``branches_<i>``)."""
+    ``branches_<i>``): a 1x1 ConvModule for dilation 1, else
+    ``dilated_conv(d)``, by default a 3x3 ConvModule padded by ``d``."""
 
     def __init__(self, dilations: Sequence[int], in_channels: int,
-                 channels: int, conv_cfg=None, norm_cfg=None, act_cfg=None):
+                 channels: int, conv_cfg=None, norm_cfg=None, act_cfg=None,
+                 dilated_conv=None):
         super().__init__()
+        common = dict(conv_cfg=conv_cfg, norm_cfg=norm_cfg, act_cfg=act_cfg)
+        if dilated_conv is None:
+            def dilated_conv(d):
+                return ConvModule(in_channels, channels, 3, dilation=d,
+                                  padding=d, **common)
         self.branches = nn.ModuleList(
-            ConvModule(in_channels, channels, 1 if d == 1 else 3, dilation=d,
-                       padding=0 if d == 1 else d, conv_cfg=conv_cfg,
-                       norm_cfg=norm_cfg, act_cfg=act_cfg)
-            for d in dilations)
+            ConvModule(in_channels, channels, 1, **common) if d == 1
+            else dilated_conv(d) for d in dilations)
 
     def forward(self, x):
         return [branch(x) for branch in self.branches]
@@ -47,11 +53,15 @@ class ASPPHead(BaseDecodeHead):
                       act_cfg=self.act_cfg)
         self.image_pool_conv = ConvModule(self.fused_in_channels,
                                           self.channels, 1, **common)
-        self.aspp_modules = ASPPModule(self.dilations, self.fused_in_channels,
-                                       self.channels, **common)
+        self.aspp_modules = self._build_aspp_module()
         self.bottleneck = ConvModule(
             (len(self.dilations) + 1) * self.channels, self.channels, 3,
             padding=1, **common)
+
+    def _build_aspp_module(self):
+        return ASPPModule(self.dilations, self.fused_in_channels,
+                          self.channels, conv_cfg=self.conv_cfg,
+                          norm_cfg=self.norm_cfg, act_cfg=self.act_cfg)
 
     def _forward_feature(self, inputs):
         x = self._transform_inputs(inputs)

@@ -16,11 +16,18 @@ windows and BEiT's layers, which add a relative-position bias (and Swin a
 shift/pad mask) to the scores: the JAX package computes it as two einsums
 outside any Pallas kernel, and so does the port, with two ``torch.matmul``
 calls.  The scores are float32 as the JAX einsum's
-``preferred_element_type=float32`` makes them: q and k are cast up
-before the product, outside autocast (a bf16 product under autocast would
-round the scores to bf16), so bf16 operands give exact float32 products
-with float32 sums.  Softmax in float32, the probabilities cast to v's
-dtype for the PV product.  A float64 input stays float64.
+``preferred_element_type=float32`` makes them, through
+``float32_product``.  Softmax in float32, the probabilities cast to v's
+dtype for the PV product, outside autocast.  A float64 input stays
+float64.
+
+``float32_product(a, b)`` is ``a @ b`` as an einsum with
+``preferred_element_type=float32`` makes it: the operands cast up to
+float32 (a float64 input stays float64) and multiplied outside autocast
+(a bf16 product under autocast would round the scores to bf16), so bf16
+operands give exact float32 products with float32 sums.  Besides
+``biased_attention``, the non-local heads form their scores with it (NL,
+DNL, CC, DA, PSA and the ``SelfAttentionBlock`` of ANN and ISA).
 
 The Mask2Former decoder's masked cross-attention is the same function with
 no bias and a per-image additive mask: the JAX ``CrossAttention`` (and its
@@ -57,17 +64,24 @@ def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``k/v (B, h, Lk, d)``, ``bias (h, Lq, Lk)`` and ``mask (nW, Lq, Lk)``
     shared by every ``nW``-th row of B (``B = N·nW``); ``dropout`` acts on
     the probabilities."""
-    acc = torch.promote_types(q.dtype, torch.float32)
+    # the product's output is not saved for the backward: in place
+    scores = float32_product(q, k.transpose(-2, -1)).mul_(scale)
     with torch.autocast(q.device.type, enabled=False):
-        # the product's output is not saved for the backward: in place
-        scores = torch.matmul(q.to(acc), k.to(acc).transpose(-2, -1))
-        scores = scores.mul_(scale)
         if bias is not None:
-            scores = scores.add_(bias.to(acc))
+            scores = scores.add_(bias.to(scores.dtype))
         if mask is not None:
             scores.unflatten(0, (-1, mask.shape[0])).add_(
-                mask[:, None].to(acc))
+                mask[:, None].to(scores.dtype))
         attn = torch.softmax(scores, dim=-1)
         if dropout is not None:
             attn = dropout(attn)
         return torch.matmul(attn.to(v.dtype), v)
+
+
+def float32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with float32 (or float64) operands and output, outside
+    autocast."""
+    acc = torch.promote_types(torch.promote_types(a.dtype, b.dtype),
+                              torch.float32)
+    with torch.autocast(a.device.type, enabled=False):
+        return torch.matmul(a.to(acc), b.to(acc))

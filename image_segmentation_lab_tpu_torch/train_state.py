@@ -96,6 +96,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             _, losses = model.forward_train(img, gt)
             loss, log_vars = parse_losses(losses)
             loss.backward()
+        # optax updates every parameter, so weight decay and momentum reach
+        # one that no loss depends on (EMAHead's ``ema_mid_conv``, behind
+        # its ``stop_gradient``); torch's optimizers skip a missing gradient
+        for group in optimizer.param_groups:
+            for param in group["params"]:
+                if param.requires_grad and param.grad is None:
+                    param.grad = torch.zeros_like(param)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()

@@ -15,8 +15,12 @@ from image_segmentation_lab_tpu_torch.models.builder import build_segmentor
 
 ROOT = Path(__file__).resolve().parents[1]
 CLAIMED = {
-    "beit/upernet_beit-b", "ddrnet/ddrnet_23-slim",
-    "deeplabv3/deeplabv3_r50-d8", "dpt/dpt_vit-s", "fcn/fcn_r18_synthetic",
+    "ann/ann_r50-d8", "beit/upernet_beit-b", "ccnet/ccnet_r50-d8",
+    "danet/danet_r50-d8", "ddrnet/ddrnet_23-slim",
+    "deeplabv3/deeplabv3_r50-d8", "deeplabv3/deeplabv3plus_r50-d8",
+    "dnlnet/dnl_r50-d8", "emanet/emanet_r50-d8", "gcnet/gcnet_r50-d8",
+    "isanet/isanet_r50-d8", "nonlocal_net/nonlocal_r50-d8",
+    "psanet/psanet_r50-d8", "dpt/dpt_vit-s", "fcn/fcn_r18_synthetic",
     "mae/upernet_mae-b", "maskformer/mask2former_r50",
     "maskformer/mask2former_swin-t", "maskformer/maskformer_r50",
     "pidnet/pidnet-s", "poolformer/fpn_poolformer_s12",
@@ -41,7 +45,7 @@ def test_the_claimed_configs_build_and_the_others_name_what_is_missing():
             built.add(name)
         except KeyError as err:
             missing[name] = str(err)
-    assert len(CLAIMED) == 28
+    assert len(CLAIMED) == 38
     assert built == CLAIMED
     assert len(built) + len(missing) == 61
     for name, message in missing.items():

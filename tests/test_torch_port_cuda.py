@@ -1138,3 +1138,53 @@ def test_nmf_on_the_card_repeats_and_stays_float32_under_autocast(cuda):
         out = nmf(x.bfloat16())
     assert out.dtype == torch.bfloat16
     assert torch.equal(out, nmf(x.bfloat16().float()).bfloat16())
+
+
+def test_psa_mask_backward_is_deterministic_on_the_card(cuda):
+    """PSANet's mask gather (``psa_head.psa_mask``) and its backward under
+    ``torch.use_deterministic_algorithms(True)``, both directions, at the
+    psanet config's 79 x 79 mask on the shrunk 40² map: the CPU's planes
+    and gradient exactly (each input tap is gathered at most once), and the
+    same bits on a second call."""
+    from image_segmentation_lab_tpu_torch.models.decode_heads.psa_head \
+        import psa_mask
+    gen = torch.Generator().manual_seed(case_seed("psa_mask"))
+    x = torch.randn(2, 79 * 79, 40, 40, generator=gen)
+    cot = torch.randn(2, 1600, 1600, generator=gen)
+
+    def run(device, psa_type):
+        xd = x.to(device, copy=True).requires_grad_(True)
+        with torch.enable_grad():
+            out = psa_mask(xd, (79, 79), psa_type)
+            (out * cot.to(device)).sum().backward()
+        return out.detach(), xd.grad
+
+    for psa_type in ("collect", "distribute"):
+        torch.use_deterministic_algorithms(True)
+        try:
+            first, second = run(cuda, psa_type), run(cuda, psa_type)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        cpu = run("cpu", psa_type)
+        for got, again, want in zip(first, second, cpu):
+            assert torch.equal(got, again)
+            assert torch.equal(got.cpu(), want)
+
+
+def test_attention_scores_are_float32_under_autocast_on_the_card(cuda):
+    """``attention.float32_product`` of bf16 operands under the bf16
+    autocast, as the non-local heads form their scores: float32, equal to
+    the float32 product of the same operands with TF32 off."""
+    gen = torch.Generator().manual_seed(case_seed("float32_product"))
+    a = torch.randn(4, 1600, 256, generator=gen).to(cuda, torch.bfloat16)
+    b = torch.randn(4, 256, 1600, generator=gen).to(cuda, torch.bfloat16)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = attention.float32_product(a, b)
+        want = torch.matmul(a.float(), b.float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)

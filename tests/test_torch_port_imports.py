@@ -36,7 +36,14 @@ new = ("models.backbones.mit", "models.decode_heads.segformer_head",
        "models.backbones.pidnet", "models.backbones.mscan",
        "models.decode_heads.ddr_head", "models.decode_heads.pid_head",
        "models.decode_heads.ham_head", "models.losses.ohem_cross_entropy",
-       "models.losses.boundary_loss")
+       "models.losses.boundary_loss",
+       "models.utils.depthwise_separable_conv_module",
+       "models.utils.non_local", "models.utils.self_attention_block",
+       "models.decode_heads.sep_aspp_head", "models.decode_heads.nl_head",
+       "models.decode_heads.dnl_head", "models.decode_heads.gc_head",
+       "models.decode_heads.cc_head", "models.decode_heads.da_head",
+       "models.decode_heads.ann_head", "models.decode_heads.isa_head",
+       "models.decode_heads.ema_head", "models.decode_heads.psa_head")
 missing = [m for m in new if pkg.__name__ + "." + m not in names]
 assert not missing, missing
 forbidden = ("jax", "flax", "optax", "orbax", "image_segmentation_lab_tpu",

@@ -4,13 +4,20 @@ Inputs and weights are made from a seed with numpy and handed to both
 packages; JAX weights reach the port through ``bridge.py``.
 """
 
+import contextlib
+import sys
+from unittest import mock
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import threadpoolctl
 import torch
 
 from image_segmentation_lab_tpu.core.initialize.checkpoint import \
     state_dict_from_variables
+from image_segmentation_lab_tpu.core.mixed_precision import \
+    policy as jpolicy
 from image_segmentation_lab_tpu_torch.bridge import load_jax_state_dict
 from image_segmentation_lab_tpu_torch.core.fileio import load_python_config
 
@@ -154,6 +161,43 @@ def compile_quickly(jitted, *args):
     vectorised sum orders), far inside every tolerance here."""
     return jitted.lower(*args).compile(
         compiler_options={"xla_backend_optimization_level": 0})
+
+
+class _Float64Numpy:
+    """``jax.numpy`` with its ``float32`` read as ``float64``."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+@contextlib.contextmanager
+def jax_in_float64():
+    """The JAX package's own rule run in float64, for the programs traced
+    inside: 64-bit types on, a float64 dtype policy, and every
+    ``jnp.float32`` that its modules name (BatchNorm's statistics, the
+    float32 scores and softmaxes) read as ``float64``.  The caller passes
+    float64 inputs and variables.  A few float32 tables remain (the
+    resize weights), so its results sit within about 1e-7 relative of
+    exact float64: a truth for float32 results that comes from the JAX
+    package, where its own float32 program loses digits (the BatchNorm's
+    one-pass variance ``E[x²] - E[x]²`` cancels on channels whose mean
+    dwarfs their spread)."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(jax.enable_x64(True))
+        stack.enter_context(jpolicy.policy_scope(
+            jpolicy.Policy(jnp.float64, jnp.float64, jnp.float64)))
+        for name, module in list(sys.modules.items()):
+            if (name.startswith("image_segmentation_lab_tpu.")
+                    and getattr(module, "jnp", None) is jnp):
+                stack.enter_context(mock.patch.object(module, "jnp",
+                                                      _Float64Numpy()))
+        yield
+
+
+def as_float64(tree):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
 
 
 def jax_apply(module, variables, *args, method=None, **kwargs):
